@@ -16,20 +16,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax  # noqa: E402
 
-# Debug reports pull every intermediate to host — a host-side workflow,
-# so run on CPU (some TPU runtimes cannot transfer complex64 at all).
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 
-from libtsd_tpu.block import pad_to_multiple, safe_pad  # noqa: E402
-from libtsd_tpu.models.detector import DetectorConfig  # noqa: E402
-from libtsd_tpu.models.frame import (FrameFormat, Receiver,  # noqa: E402
+from libtsd_jax.block import pad_to_multiple, safe_pad  # noqa: E402
+from libtsd_jax.models.detector import DetectorConfig  # noqa: E402
+from libtsd_jax.models.frame import (FrameFormat, Receiver,  # noqa: E402
                                      Transmitter)
-from libtsd_tpu.models.modulator import ModConfig  # noqa: E402
-from libtsd_tpu.models.waveform import PulseShape, wf_qpsk  # noqa: E402
-from libtsd_tpu.ops.fft import delay_signal  # noqa: E402
-from libtsd_tpu.viz.debug import debug_report  # noqa: E402
+from libtsd_jax.models.modulator import ModConfig  # noqa: E402
+from libtsd_jax.models.waveform import PulseShape, wf_qpsk  # noqa: E402
+from libtsd_jax.ops.fft import delay_signal  # noqa: E402
+from libtsd_jax.viz.debug import debug_report  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "build", "report")
 
@@ -63,8 +59,8 @@ def frame_rx_report():
 
 
 def demod_report():
-    from libtsd_tpu.models.demod import DemodConfig, Demodulator
-    from libtsd_tpu.models.modulator import Modulator
+    from libtsd_jax.models.demod import DemodConfig, Demodulator
+    from libtsd_jax.models.modulator import Modulator
     rng = np.random.RandomState(1)
     wf = wf_qpsk(PulseShape.rcs(0.25))
     mod = Modulator.create(ModConfig(wf=wf, fe=4.0, fsymb=1.0))
@@ -80,9 +76,9 @@ def demod_report():
 
 
 def fm_report():
-    from libtsd_tpu.models.analog import (fm_broadcast_debug,
+    from libtsd_jax.models.analog import (fm_broadcast_debug,
                                           fm_broadcast_multiplex)
-    from libtsd_tpu.ops.signal import cycles
+    from libtsd_jax.ops.signal import cycles
     fe = 250e3
     n = 1 << 15
     al = 0.8 * jnp.sin(2 * jnp.pi * cycles(1000.0 / fe, n))
@@ -98,6 +94,8 @@ def fm_report():
 
 
 if __name__ == "__main__":
+    from libtsd_jax.platform import enable_compile_cache
+    enable_compile_cache()
     frame_rx_report()
     demod_report()
     fm_report()

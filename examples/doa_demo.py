@@ -17,22 +17,20 @@ Parity anchor: the reference's DOA surface (MUSIC only,
 /root/reference/core/src/apps/doa.cc:17-84); spatial smoothing and the
 Capon/MVDR spectrum are beyond-reference additions (models/doa.py).
 
-Run:  PYTHONPATH=/root/repo python examples/doa_demo.py
+Run:  python examples/doa_demo.py
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax
 
-if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
-from libtsd_tpu.models import doa as DOA
-from libtsd_tpu.models.stats import mdl_source_count
+from libtsd_jax.models import doa as DOA
+from libtsd_jax.models.stats import mdl_source_count
 
 M, D, L, T = 16, 0.5, 10, 400
 TRUE_DEG = (70.0, 110.0)
@@ -90,6 +88,8 @@ def run_case(name: str, coherent: bool):
 
 
 if __name__ == "__main__":
+    from libtsd_jax.platform import enable_compile_cache
+    enable_compile_cache()
     n1_raw, n1_sm = run_case("incoherent sources", coherent=False)
     n2_raw, n2_sm = run_case("coherent multipath", coherent=True)
     assert (n1_raw, n1_sm) == (2, 2)

@@ -11,28 +11,25 @@ The capture is synthesized first: a strong tone at +0.08 and an
 interferer at -0.23 of the sample rate; the chain selects the +0.08
 channel, so the output must be a clean baseband tone.
 
-Run (CPU or TPU):
-    PYTHONPATH=/root/repo python examples/iq_stream_demo.py
+Run:
+    python examples/iq_stream_demo.py
 """
 import os
 import sys
 import tempfile
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax
 
-if os.environ.get("LIBTSD_EXAMPLE_TPU") != "1":
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
-from flax import struct
+from libtsd_jax import struct
 
-from libtsd_tpu.block import Block, chain
-from libtsd_tpu.io import IqFileReader, StreamRunner, cs16_to_cf32
-from libtsd_tpu.ops import fir_design as FD
-from libtsd_tpu.ops.filter_rt import FirDecim
+from libtsd_jax.block import Block, chain
+from libtsd_jax.io import IqFileReader, StreamRunner, cs16_to_cf32
+from libtsd_jax.ops import fir_design as FD
+from libtsd_jax.ops.filter_rt import FirDecim
 
 F_WANTED, F_INTERF = 0.08, -0.23
 DECIM = 8
@@ -101,4 +98,6 @@ def main():
 
 
 if __name__ == "__main__":
+    from libtsd_jax.platform import enable_compile_cache
+    enable_compile_cache()
     main()

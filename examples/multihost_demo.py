@@ -1,18 +1,19 @@
 #!/usr/bin/env python
-"""Multi-host scale-out demo: the sharded fused FIR+periodogram chain
-running SPMD across N OS processes (one per "host") joined with
-`libtsd_tpu.parallel.launch.initialize` over gloo/DCN.
+"""Multi-host scale-out demo: the sharded FIR+periodogram chain running
+SPMD across N OS processes (one per "host") joined with
+`libtsd_jax.parallel.launch.initialize` over gloo.
 
 Topology: mesh ("chan", "time") with chan = #processes (each host owns a
 contiguous block of channels — data-parallel over hosts, nothing crosses
-DCN in steady state) and time = #local devices per host (sequence
-parallelism with ICI halo exchange + psum inside each host).  Each host
-ingests ONLY its own channels (ingest_local — the DCN ingest boundary),
+hosts in steady state) and time = #local devices per host (sequence
+parallelism with halo exchange + psum inside each host).  Each host
+ingests ONLY its own channels (ingest_local — the host ingest boundary),
 then every process executes the same global SPMD program.
 
-On this single-chip environment the "hosts" are localhost processes with
-virtual CPU devices — the honest stand-in; on a real pod the worker body
-is unchanged (initialize() with no args, drop the CPU forcing).
+This is an explicit CPU simulation: the "hosts" are localhost processes,
+each with virtual CPU devices, and no process touches a GPU.  On a real
+multi-host GPU cluster the worker body is unchanged apart from dropping
+the CPU forcing (one process per host, its local GPUs on "time").
 
     python examples/multihost_demo.py            # launcher: spawn 2 hosts
     python examples/multihost_demo.py --nproc 4
@@ -26,8 +27,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-LOCAL_DEVICES = 2        # virtual chips per "host"
-NFFT_CHUNK = 65536       # kernel chunk (per time shard)
+LOCAL_DEVICES = 2        # virtual devices per "host"
+NFFT_CHUNK = 65536       # samples per time shard
 TAPS = 128
 
 
@@ -45,7 +46,7 @@ def worker(coordinator: str, nproc: int, pid: int) -> None:
 
     # initialize() must run before anything touches the XLA backend —
     # including library imports that build constant tables on device
-    from libtsd_tpu.parallel import launch
+    from libtsd_jax.parallel import launch
     launch.initialize(coordinator_address=coordinator,
                       num_processes=nproc, process_id=pid)
     assert jax.process_count() == nproc
@@ -53,26 +54,23 @@ def worker(coordinator: str, nproc: int, pid: int) -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from libtsd_tpu.ops import fir_design as FD
-    from libtsd_tpu.ops.filter_rt import fir_toeplitz_mats
-    from libtsd_tpu.parallel import make_mesh, P, sharded_fir_periodogram4096
+    from libtsd_jax.ops import fir_design as FD
+    from libtsd_jax.parallel import make_mesh, P, sharded_fir_periodogram4096
 
     # global mesh: hosts on "chan", local devices on "time"
     mesh = make_mesh(chan=nproc, time=LOCAL_DEVICES)
     C = 2 * nproc
     N = LOCAL_DEVICES * NFFT_CHUNK
 
-    h = FD.fir_lowpass(TAPS, 0.2)
-    G = jnp.asarray(fir_toeplitz_mats(np.asarray(h, np.float64)), jnp.float32)
+    h = jnp.asarray(FD.fir_lowpass(TAPS, 0.2), jnp.float32)
 
-    # DCN ingest boundary: this host materializes ONLY its channels
+    # host ingest boundary: this host materializes ONLY its channels
     per = C // nproc
     local = np.stack([gen_channel(c, N)
                       for c in range(pid * per, (pid + 1) * per)])
     x = launch.ingest_local(mesh, P("chan", "time"), local)
 
-    acc = sharded_fir_periodogram4096(mesh, x, G, precision="highest",
-                                      interpret=True)
+    acc = sharded_fir_periodogram4096(mesh, x, h)
     total = float(jax.jit(jnp.sum)(acc))     # cross-host reduction
     print(f"proc {pid}: CHECKSUM {total:.8e}", flush=True)
 
@@ -106,16 +104,14 @@ def launcher(nproc: int) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from libtsd_tpu.ops import fir_design as FD
-    from libtsd_tpu.ops.filter_rt import fir_toeplitz_mats
-    from libtsd_tpu.ops.pallas.chain import fir_periodogram4096
+    from libtsd_jax.ops import fir_design as FD
+    from libtsd_jax.ops.chain import fir_periodogram4096
 
     C = 2 * nproc
     N = LOCAL_DEVICES * NFFT_CHUNK
     x = jnp.asarray(np.stack([gen_channel(c, N) for c in range(C)]))
-    h = FD.fir_lowpass(TAPS, 0.2)
-    G = jnp.asarray(fir_toeplitz_mats(np.asarray(h, np.float64)), jnp.float32)
-    ref = float(jnp.sum(fir_periodogram4096(x, G, interpret=True)))
+    h = jnp.asarray(FD.fir_lowpass(TAPS, 0.2), jnp.float32)
+    ref = float(jnp.sum(fir_periodogram4096(x, h)))
 
     assert len(checks) == nproc
     for v in checks:

@@ -12,13 +12,18 @@ ones.  The demo synthesizes both signals, impairs them, and decodes:
 * POCSAG: an alphanumeric page is FSK-modulated at 1200 baud with a
   carrier offset and AWGN, then decoded with automatic baud detection.
 
-Run (CPU or TPU):
-    PYTHONPATH=/root/repo python examples/protocols_demo.py
+Run:
+    python examples/protocols_demo.py
 """
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
 import numpy as np
 
-from libtsd_tpu.models import adsb as A
-from libtsd_tpu.models import pocsag as P
+from libtsd_jax.models import adsb as A
+from libtsd_jax.models import pocsag as P
 
 
 def hexbits(h: str) -> np.ndarray:
@@ -78,14 +83,14 @@ def pocsag_demo():
 def rds_demo():
     print("== RDS ==")
     import jax.numpy as jnp
-    from libtsd_tpu.models import rds as R
-    from libtsd_tpu.models.analog import fm_broadcast_multiplex
-    from libtsd_tpu.ops.signal import cycles
+    from libtsd_jax.models import rds as R
+    from libtsd_jax.models.analog import fm_broadcast_multiplex
+    from libtsd_jax.ops.signal import cycles
     fe = 1.024e6
     pi, pty = 0xF201, 10
-    groups = [R.rds_group_0a(pi, pty, s, "TSD TPU!"[2 * s:2 * s + 2])
+    groups = [R.rds_group_0a(pi, pty, s, "TSD JAX!"[2 * s:2 * s + 2])
               for s in range(4)]
-    groups += [R.rds_group_2a(pi, pty, a, "TPU NATIVE DSP! "[4 * a:4 * a + 4])
+    groups += [R.rds_group_2a(pi, pty, a, "JAX NATIVE DSP! "[4 * a:4 * a + 4])
                for a in range(4)]
     bits = R.rds_encode_groups(groups * 3)
     n = int(len(bits) / R._BITRATE * fe) + 65536
@@ -105,6 +110,8 @@ def rds_demo():
 
 
 if __name__ == "__main__":
+    from libtsd_jax.platform import enable_compile_cache
+    enable_compile_cache()
     adsb_demo()
     pocsag_demo()
     rds_demo()

@@ -3,18 +3,14 @@
 scaling over N "hosts" (BASELINE north star: >=80 % samples/s scaling
 efficiency 1 chip -> 1 host -> N hosts).
 
-Honest measurement strategy for this environment (one real TPU chip, a
-4-core host): *virtual* in-process devices share one thread pool and
-cannot speed anything up, so scaling is measured over REAL OS processes
-joined with jax.distributed.initialize (gloo) — one CPU device per
-process, the ("chan","time") mesh spanning processes.  Each process owns
-one time shard (constant per-process work = weak scaling); the 256-tap
-FIR's halo rides the inter-process collective exactly as it would ride
-ICI/DCN on a pod.  Efficiency(n) = t(1)/t(n) — ideal weak scaling keeps
-wall-clock flat.
-
-On a real pod slice, set LIBTSD_SCALING_TPU=1 and run one process per
-host: the same worker body measures true multi-chip scaling.
+This is an explicit CPU simulation.  Virtual in-process devices share
+one thread pool and cannot speed anything up, so scaling is measured over
+REAL OS processes joined with jax.distributed.initialize (gloo) — one
+CPU device per process, the ("chan","time") mesh spanning processes; no
+process touches a GPU.  Each process owns one time shard (constant
+per-process work = weak scaling); the 256-tap FIR's halo rides the
+inter-process collective.  Efficiency(n) = t(1)/t(n) — ideal weak
+scaling keeps wall-clock flat.
 
     python examples/scaling_bench.py             # 1,2,4-process sweep
 """
@@ -44,17 +40,17 @@ def worker(coordinator, nproc, pid):
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from libtsd_tpu.parallel import launch
+    from libtsd_jax.parallel import launch
     if nproc > 1:
         launch.initialize(coordinator_address=coordinator,
                           num_processes=nproc, process_id=pid)
 
     import jax.numpy as jnp
     import numpy as np
-    from libtsd_tpu.ops import fir_design as FD
-    from libtsd_tpu.ops import filter_rt as FR
-    from libtsd_tpu.parallel import make_mesh, P, sharded_chain
-    from libtsd_tpu.parallel.launch import ingest_local
+    from libtsd_jax.ops import fir_design as FD
+    from libtsd_jax.ops import filter_rt as FR
+    from libtsd_jax.parallel import make_mesh, P, sharded_chain
+    from libtsd_jax.parallel.launch import ingest_local
 
     mesh = make_mesh(chan=1, time=nproc)
     h = FD.fir_lowpass(TAPS, 0.2)

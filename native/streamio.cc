@@ -1,6 +1,6 @@
-// Host-side streaming data engine for libtsd-tpu (C ABI, used via ctypes).
+// Host-side streaming data engine for libtsd-jax (C ABI, used via ctypes).
 //
-// The TPU compute path is JAX/XLA/Pallas; this native library implements the
+// The device compute path is JAX/XLA/Pallas; this native library implements the
 // runtime *around* it: the pieces that feed signals from IO into fixed-size
 // device blocks at line rate.
 //
@@ -112,8 +112,8 @@ void cu8_to_cf32(const uint8_t* src, float* dst, int64_t n_iq) {
         dst[i] = (static_cast<float>(src[i]) - 127.5f) * s;
 }
 
-// Interleaved float32 I/Q -> planar (re[], im[]) — the layout complex-
-// transfer-less TPU runtimes want (re/im planes).
+// Interleaved float32 I/Q -> planar (re[], im[]) — the device transfer
+// layout (re/im planes, libtsd_jax/config.py to_ri).
 void cf32_deinterleave(const float* src, float* re, float* im, int64_t n_iq) {
     for (int64_t i = 0; i < n_iq; ++i) {
         re[i] = src[2 * i];

@@ -1,5 +1,5 @@
 // Golden-output generator #4: widens the reference-binary numerical diff
-// to the last untested composites (VERDICT r3 next-#7): the broadcast FM
+// to the last untested composites: the broadcast FM
 // demodulation chain (mono path), adaptive equalizer trajectories
 // (FFE/DFE x DEC/CMA), the dispersive (Rayleigh/Rice) channel process,
 // the real-time spectrum sweep composite, and the MDL auto source-count

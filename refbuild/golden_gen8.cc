@@ -1,7 +1,6 @@
 // Golden-output generator #8: the FULL Récepteur composite and both
 // stand-alone demodulator architectures, diffed against the reference
-// binary (VERDICT r4 next-#1 — the flagship composite was the last
-// self-certified parity claim).
+// binary.
 //
 // Scenarios (all inputs deterministic: LCG bits, FFT fractional delay,
 // fixed gain/phase — no RNG anywhere, so the .npy files are bit-for-bit

@@ -5,17 +5,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import waveform as WF, channel as CH, ber as BER
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.modulator import ModConfig, Modulator
-from libtsd_tpu.models.demod_dec import DecisionDemod, DecDemodConfig
-from libtsd_tpu.models.imu import ImuModel, imu_simulate, imu_ekf
-from libtsd_tpu.models.channelizer import Channelizer, channelize
-from libtsd_tpu.ops.spectrum import RtSpectrum, SpectrumConfig
-from libtsd_tpu.ops import filter_analysis as FA
-from libtsd_tpu.ops import fir_design as FD
-from libtsd_tpu.ops import iir_design as ID
-from libtsd_tpu.ops.fft import delay_signal
+from libtsd_jax.models import waveform as WF, channel as CH, ber as BER
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.modulator import ModConfig, Modulator
+from libtsd_jax.models.demod_dec import DecisionDemod, DecDemodConfig
+from libtsd_jax.models.imu import ImuModel, imu_simulate, imu_ekf
+from libtsd_jax.models.channelizer import Channelizer, channelize
+from libtsd_jax.ops.spectrum import RtSpectrum, SpectrumConfig
+from libtsd_jax.ops import filter_analysis as FA
+from libtsd_jax.ops import fir_design as FD
+from libtsd_jax.ops import iir_design as ID
+from libtsd_jax.ops.fft import delay_signal
 
 
 def test_decision_demod_impaired():
@@ -160,7 +160,7 @@ def test_analysis_responses():
 
 
 def test_window_analysis():
-    from libtsd_tpu.ops.window import window
+    from libtsd_jax.ops.window import window
     a_hn = FA.analyze_window(window("hann", 64, sym=True))
     a_re = FA.analyze_window(window("rect", 64))
     # Hann: ~-31 dB first sidelobe; rect: ~-13 dB
@@ -171,8 +171,8 @@ def test_window_analysis():
 def test_decision_demod2_qpsk_fused():
     """Single-scan pointer-based DD demod (DecisionDemod2) under combined
     timing + frequency offset + noise."""
-    from libtsd_tpu.models.demod_dec2 import DecisionDemod2
-    from libtsd_tpu.models.demod_dec import DecDemodConfig as DC
+    from libtsd_jax.models.demod_dec2 import DecisionDemod2
+    from libtsd_jax.models.demod_dec import DecDemodConfig as DC
     wf = WF.wf_qpsk(WF.PulseShape.rcs(0.25))
     mod = Modulator.create(ModConfig(wf=wf, fe=4.0, fsymb=1.0))
     bits = randbits(jax.random.PRNGKey(40), 2 * 3000)
@@ -251,7 +251,7 @@ def test_cqt_stream_decimated():
     lands in the right geometric bin; per-bin output rate follows the
     constant-Q decimation (hop = ktime/2)."""
     import numpy as np
-    from libtsd_tpu.ops.cqt import (cqt_stream_kernel, cqt_stream,
+    from libtsd_jax.ops.cqt import (cqt_stream_kernel, cqt_stream,
                                     cqt_interpolate)
     K = cqt_stream_kernel(fmin=0.01, fmax=0.3, gamma=2 ** (1 / 6), Q=20)
     n = 8 * (K.N // 2)
@@ -282,7 +282,7 @@ def test_cqt_stream_low_bin_positions_stay_valid():
     frequency-domain shift then wraps circularly, corrupting magnitudes
     with valid=True)."""
     import numpy as np
-    from libtsd_tpu.ops.cqt import cqt_stream, cqt_stream_kernel
+    from libtsd_jax.ops.cqt import cqt_stream, cqt_stream_kernel
     K = cqt_stream_kernel(fmin=0.01, fmax=0.3, Q=20)
     assert K.ktime.max() <= K.N // 2          # window fits every alignment
     n = 50 * (K.N // 2)
@@ -305,7 +305,7 @@ def test_dechannelize_roundtrip():
     for a critically sampled single-prototype DFT bank — documented).
     Guards the analysis/synthesis transform DIRECTION (an FFT where the
     IFFT belongs reconstructs with negated frequencies)."""
-    from libtsd_tpu.models.channelizer import dechannelize
+    from libtsd_jax.models.channelizer import dechannelize
     M, n, d = 16, 1 << 13, 128
     t = np.arange(n)
     x = np.exp(2j * np.pi * (3 / M) * t).astype(np.complex64)
@@ -327,7 +327,7 @@ def test_wola_near_perfect_reconstruction():
     broadband reconstruction to < -65 dB, including channel-EDGE tones
     (each edge tone passes the prototype twice; the -3 dB root-Nyquist
     crossing makes adjacent channels sum to exactly 1)."""
-    from libtsd_tpu.models.channelizer import wola_analysis, wola_synthesis
+    from libtsd_jax.models.channelizer import wola_analysis, wola_synthesis
     M, n = 16, 1 << 13
     rng = np.random.default_rng(0)
     for x in (np.exp(2j * np.pi * (3.5 / M) * np.arange(n)),    # edge
@@ -345,7 +345,7 @@ def test_wola_near_perfect_reconstruction():
 
 def test_wola_channel_isolation():
     """A channel-center tone lands in exactly one WOLA channel."""
-    from libtsd_tpu.models.channelizer import wola_analysis
+    from libtsd_jax.models.channelizer import wola_analysis
     M, n = 16, 1 << 12
     x = np.exp(2j * np.pi * (5 / M) * np.arange(n)).astype(np.complex64)
     ch = np.asarray(wola_analysis(jnp.asarray(x), M))

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import pytest
 import scipy.linalg as sla
 
-from libtsd_tpu.models import kalman as KF
-from libtsd_tpu.models import doa as DOA
-from libtsd_tpu.models import stats as ST
+from libtsd_jax.models import kalman as KF
+from libtsd_jax.models import doa as DOA
+from libtsd_jax.models import stats as ST
 
 
 def test_levinson_real_vs_toeplitz_solve():
@@ -92,7 +92,7 @@ def test_r2R_toeplitz():
 
 
 def test_check_normalized_freq():
-    from libtsd_tpu.ops import fir_design as FD
+    from libtsd_jax.ops import fir_design as FD
     FD.check_normalized_freq(0.25)
     with pytest.raises(ValueError):
         FD.check_normalized_freq(0.7, "design")
@@ -139,7 +139,7 @@ def test_spatial_smoothing_coherent_sources():
     # has no rank-2 signal space to work with.  Forward-backward spatial
     # smoothing restores the rank to 2 — MDL then counts both, and MUSIC
     # on the smoothed (L, L) covariance localizes both to <0.5 deg.
-    from libtsd_tpu.models.stats import mdl_source_count
+    from libtsd_jax.models.stats import mdl_source_count
     m, d, L, T = 16, 0.5, 10, 200
     th = np.deg2rad([70.0, 110.0])
     k = np.arange(m)

@@ -18,21 +18,17 @@ than QPSK at equal Eb/N0); 4-FSK's quadrature-discriminator demod is
 noncoherent, so its loss vs the coherent-orthogonal ber() curve grows
 with SNR (the reference's own bench records FSK without gating,
 check_errs=non)."""
-import sys
-
 import jax
 import numpy as np
 import pytest
-
-sys.path.insert(0, "/root/repo")
 import jax.numpy as jnp
 
-from libtsd_tpu.models import ber as BER
-from libtsd_tpu.models import channel as CH
-from libtsd_tpu.models import waveform as WF
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.demod import DemodConfig, Demodulator
-from libtsd_tpu.models.modulator import ModConfig, Modulator
+from libtsd_jax.models import ber as BER
+from libtsd_jax.models import channel as CH
+from libtsd_jax.models import waveform as WF
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.demod import DemodConfig, Demodulator
+from libtsd_jax.models.modulator import ModConfig, Modulator
 
 # tier-2: long statistical sweep — excluded from the <3-min default loop
 pytestmark = pytest.mark.slow

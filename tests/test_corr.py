@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.ops import corr as C
-from libtsd_tpu.utils.testing import check_max_error
+from libtsd_jax.ops import corr as C
+from libtsd_jax.utils.testing import check_max_error
 
 
 def naive_ccorr(x0, x1):
@@ -161,7 +161,7 @@ def test_estimate_delay_sweep(n):
     705-729): integer and fractional delays across signal lengths, with
     the reference's tolerances (0.02 position, 0.1 at N=32; score within
     0.4 of 1), and its scale-invariance check (x0*=7, x1*=4)."""
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.fft import delay_signal
     delays = [0.0, 1.0, 10.0, 1.1] if n == 32 else \
         [0.0, 1.0, 10.0, 20.0, 40.0, -50.0, 11.0, 1.1]
     x0 = _gauss_pulse(n)

@@ -7,10 +7,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from libtsd_tpu.models.detector import DetectorConfig
-from libtsd_tpu.models.frame import FrameFormat, Receiver
-from libtsd_tpu.models.modulator import ModConfig
-from libtsd_tpu.models.waveform import PulseShape, wf_qpsk
+from libtsd_jax.models.detector import DetectorConfig
+from libtsd_jax.models.frame import FrameFormat, Receiver
+from libtsd_jax.models.modulator import ModConfig
+from libtsd_jax.models.waveform import PulseShape, wf_qpsk
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -36,7 +36,7 @@ def _rx():
 def test_receiver_step_debug_stages():
     """step_debug returns the same frames as step PLUS every extraction
     stage of the first valid detection, coherent with each other."""
-    from libtsd_tpu.block import pad_to_multiple, safe_pad
+    from libtsd_jax.block import pad_to_multiple, safe_pad
     rx = _rx()
     x = jnp.asarray(np.load(os.path.join(GOLD, "g8_rx1_x.npy")))
     extra = max(rx.frame_len, 2 * rx.det.M) + 2 * rx.itp.K
@@ -68,7 +68,7 @@ def test_receiver_step_debug_stages():
 
 
 def test_demodulator_debug_stages():
-    from libtsd_tpu.models.demod import DemodConfig, Demodulator
+    from libtsd_jax.models.demod import DemodConfig, Demodulator
     x = jnp.asarray(np.load(os.path.join(GOLD, "g8_d_x.npy")))
     dm = Demodulator.create(DemodConfig(wf=wf_qpsk(PulseShape.rcs(0.25)),
                                         fe=4.0, fsymb=1.0))
@@ -84,10 +84,10 @@ def test_demodulator_debug_stages():
 
 
 def test_fm_broadcast_debug_stages():
-    from libtsd_tpu.models.analog import (fm_broadcast_debug,
+    from libtsd_jax.models.analog import (fm_broadcast_debug,
                                           fm_broadcast_demodulate,
                                           fm_broadcast_multiplex)
-    from libtsd_tpu.ops.signal import cycles
+    from libtsd_jax.ops.signal import cycles
     fe = 1.024e6
     n = 1 << 17
     al = 0.3 * jnp.sin(2 * jnp.pi * cycles(440.0 / fe, n))
@@ -104,7 +104,7 @@ def test_fm_broadcast_debug_stages():
 
 
 def test_debug_report_renders_html(tmp_path):
-    from libtsd_tpu.viz.debug import debug_report
+    from libtsd_jax.viz.debug import debug_report
     rng = np.random.default_rng(0)
     sig = dict(
         stage_real=rng.standard_normal(256).astype(np.float32),

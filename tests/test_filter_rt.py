@@ -1,15 +1,15 @@
-"""Streaming filter runtime tests: MXU-Toeplitz FIR vs np.convolve,
+"""Streaming filter runtime tests: Toeplitz-matmul FIR vs np.convolve,
 IIR/SOS vs scipy.lfilter/sosfilt, streaming == one-shot equivalence."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import scipy.signal as sps
 
-from libtsd_tpu.block import stream
-from libtsd_tpu.ops import filter_rt as FR
-from libtsd_tpu.ops import fir_design as FD
-from libtsd_tpu.ops import iir_design as ID
-from libtsd_tpu.utils.testing import check_max_error
+from libtsd_jax.block import stream
+from libtsd_jax.ops import filter_rt as FR
+from libtsd_jax.ops import fir_design as FD
+from libtsd_jax.ops import iir_design as ID
+from libtsd_jax.utils.testing import check_max_error
 
 rng = np.random.default_rng(42)
 
@@ -165,7 +165,7 @@ def test_iir_streaming():
 
 def test_iir_frame_matches_lfilter():
     """Frame-parallel IIR (block state-space over 128-sample frames:
-    MXU Toeplitz matmul + log-depth k-dim state scan) equals lfilter."""
+    Toeplitz matmul + log-depth k-dim state scan) equals lfilter."""
     b, a = sps.butter(4, 0.2)
     x = rng.standard_normal(1024).astype(np.float32)
     ref = sps.lfilter(b, a, x.astype(np.float64))
@@ -336,7 +336,7 @@ def test_stream_tail_safe(B):
     """stream() must equal the one-shot run for ANY block size, including
     ones that don't divide len(x) — the remainder is processed, not
     dropped (parity: tampon keeps the tail, tsd.cc:303-386)."""
-    from libtsd_tpu.block import stream
+    from libtsd_jax.block import stream
     h = FD.fir_lowpass(31, 0.2)
     blk = FR.Fir.create(h)
     x = jnp.asarray(np.random.default_rng(0).standard_normal(501),
@@ -350,7 +350,7 @@ def test_stream_tail_safe(B):
 def test_single_tap_blocks_keep_state_bounded():
     """K=1 degenerate: the [-(K-1):] slice was [-0:] (everything) and the
     carried state grew by n every step."""
-    from libtsd_tpu.ops.filter_rt import Fir, MovingAverage
+    from libtsd_jax.ops.filter_rt import Fir, MovingAverage
     f = Fir.create([2.0])
     st = f.init()
     for _ in range(3):
@@ -367,7 +367,7 @@ def test_single_tap_blocks_keep_state_bounded():
 def test_dc_blocker_streaming_matches_oneshot():
     """The scan seed must reproduce y[0] = r*(xd[0] + y_prev) at block
     boundaries (a y_prev/r seed left a (1-r)*y_prev discontinuity)."""
-    from libtsd_tpu.ops.filter_rt import DcBlocker
+    from libtsd_jax.ops.filter_rt import DcBlocker
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal(512), jnp.float32)
     dc = DcBlocker.create(0.02)
@@ -392,12 +392,12 @@ def test_dc_blocker_streaming_matches_oneshot():
 
 def test_olafft_complex_taps_real_input_keeps_imag():
     """A complex (analytic/matched) filter on a REAL signal must return
-    the complex response on the xla engine too."""
-    from libtsd_tpu.ops.filter_rt import OlaFft, fir_filter
+    the complex response."""
+    from libtsd_jax.ops.filter_rt import OlaFft, fir_filter
     rng = np.random.default_rng(1)
     h = (rng.standard_normal(31)
          + 1j * rng.standard_normal(31)).astype(np.complex64)
-    o = OlaFft.create(h, engine="xla")
+    o = OlaFft.create(h)
     x = jnp.asarray(rng.standard_normal(4 * o.Ne), jnp.float32)
     _, y = o.step(o.init_for(x), x)
     assert jnp.iscomplexobj(y)
@@ -408,8 +408,97 @@ def test_olafft_complex_taps_real_input_keeps_imag():
 def test_resample_trims_padding_tail():
     """Large-q residual ratios must not hand the caller resampled
     zero-padding as signal."""
-    from libtsd_tpu.ops.resample import resample
+    from libtsd_jax.ops.resample import resample
     x = jnp.asarray(np.random.default_rng(2).standard_normal(1000),
                     jnp.float32)
     y = resample(x, np.pi / 2)
     assert abs(y.shape[-1] - round(1000 * np.pi / 2)) <= 3, y.shape
+
+
+# ---------------------------------------------- OlaFft, Fir, IIR: XLA paths
+
+@pytest.mark.parametrize("taps,sig", [("real", "real"), ("real", "complex"),
+                                      ("complex", "real"),
+                                      ("complex", "complex")])
+def test_olafft_tap_and_signal_kinds(taps, sig):
+    """OlaFft (cuFFT overlap-add on the GPU) vs direct convolution for
+    real and complex taps on real and complex signals."""
+    r = np.random.default_rng(5)
+    h = r.standard_normal(129)
+    if taps == "complex":
+        h = h + 1j * r.standard_normal(129)
+    blk = FR.OlaFft.create(h)
+    x = r.standard_normal(4 * blk.Ne).astype(np.float32)
+    if sig == "complex":
+        x = (x + 1j * r.standard_normal(x.shape[0])).astype(np.complex64)
+    _, y = blk.step(blk.init_for(jnp.asarray(x)), jnp.asarray(x))
+    assert np.iscomplexobj(np.asarray(y)) == (taps == "complex"
+                                              or sig == "complex")
+    exp = np.convolve(x, h)[:x.shape[0]]
+    assert np.abs(np.asarray(y) - exp).max() < 1e-4 * np.abs(exp).max()
+
+
+@pytest.mark.parametrize("Ne", [64, 256, 1000])
+def test_olafft_explicit_ne_stream_continuation(Ne):
+    """An explicit block size is honoured, and blocks of several Ne
+    continue the stream exactly (the carried overlap-add tail)."""
+    r = np.random.default_rng(Ne)
+    h = r.standard_normal(100)
+    blk = FR.OlaFft.create(h, Ne=Ne)
+    assert blk.Ne == Ne and blk.Nf >= Ne + 99
+    x = r.standard_normal(6 * Ne).astype(np.float32)
+    st = blk.init_for(jnp.asarray(x))
+    outs = []
+    for a, b in ((0, Ne), (Ne, 3 * Ne), (3 * Ne, 6 * Ne)):
+        st, y = blk.step(st, jnp.asarray(x[a:b]))
+        outs.append(np.asarray(y))
+    exp = np.convolve(x, h)[:6 * Ne]
+    got = np.concatenate(outs)
+    assert np.abs(got - exp).max() < 1e-4 * np.abs(exp).max()
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 127, 128, 129])
+def test_fir_short_and_block_edge_taps(K):
+    """Toeplitz FIR at tap counts around the 128-sample block edge."""
+    r = np.random.default_rng(K)
+    h = r.standard_normal(K)
+    x = r.standard_normal(700).astype(np.float32)
+    y = np.asarray(FR.fir_filter(h, jnp.asarray(x)))
+    exp = np.convolve(x, h)[:700]
+    assert np.abs(y - exp).max() < 1e-4 * max(np.abs(exp).max(), 1.0)
+
+
+@pytest.mark.parametrize("shape", [(3, 512), (2, 2, 256)])
+def test_fir_batched_streaming(shape):
+    """Batched channels stream in two blocks exactly like one shot."""
+    r = np.random.default_rng(1)
+    h = r.standard_normal(40)
+    x = r.standard_normal(shape).astype(np.float32)
+    blk = FR.Fir.create(h)
+    n = shape[-1]
+    st = blk.init_for(jnp.asarray(x))
+    st, y1 = blk.step(st, jnp.asarray(x[..., :n // 2]))
+    st, y2 = blk.step(st, jnp.asarray(x[..., n // 2:]))
+    got = np.concatenate([np.asarray(y1), np.asarray(y2)], axis=-1)
+    exp = np.apply_along_axis(lambda v: np.convolve(v, h)[:n], -1, x)
+    assert np.abs(got - exp).max() < 1e-4 * np.abs(exp).max()
+
+
+@pytest.mark.parametrize("design", ["butter4", "cheby8", "ellip6"])
+def test_sos_frame_chain_streaming_vs_sosfilt(design):
+    """sos_frame_chain (frame-parallel IIR) vs scipy.sosfilt, with the
+    state carried across three uneven blocks."""
+    sos = {"butter4": lambda: sps.butter(4, 0.1, output="sos"),
+           "cheby8": lambda: sps.cheby1(8, 1, 0.05, output="sos"),
+           "ellip6": lambda: sps.ellip(6, 0.5, 40, 0.2, output="sos")}[
+               design]()
+    r = np.random.default_rng(3)
+    x = r.standard_normal((2, 1536)).astype(np.float32)
+    ch = FR.sos_frame_chain(sos)
+    st = ch.init_for(jnp.asarray(x[:, :256]))
+    outs = []
+    for a, b in ((0, 256), (256, 1024), (1024, 1536)):
+        st, y = ch.step(st, jnp.asarray(x[:, a:b]))
+        outs.append(np.asarray(y))
+    exp = sps.sosfilt(sos, x.astype(np.float64), axis=-1)
+    check_max_error(np.concatenate(outs, axis=-1), exp, 1e-4)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from libtsd_tpu.ops import fir_design as FD
+from libtsd_jax.ops import fir_design as FD
 
 
 def freq_resp(h, nfft=4096):

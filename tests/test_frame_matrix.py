@@ -13,13 +13,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import waveform as WF
-from libtsd_tpu.models import ber as BER
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.detector import DetectorConfig
-from libtsd_tpu.models.frame import FrameFormat, Receiver, Transmitter
-from libtsd_tpu.models.modulator import ModConfig
-from libtsd_tpu.ops.fft import delay_signal
+from libtsd_jax.models import waveform as WF
+from libtsd_jax.models import ber as BER
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.detector import DetectorConfig
+from libtsd_jax.models.frame import FrameFormat, Receiver, Transmitter
+from libtsd_jax.models.modulator import ModConfig
+from libtsd_jax.ops.fft import delay_signal
 
 # tier-2: long statistical sweep — excluded from the <3-min default loop
 pytestmark = pytest.mark.slow
@@ -93,10 +93,9 @@ def test_unaligned_header_rejected():
 
 
 @pytest.mark.parametrize("frac", [False, True])
-def test_receiver_matrix_fused_engine(frac):
-    """The TPU fast path (fused Pallas detector front + stride-8 grouped
-    PLL) through the statistical matrix row: identical gates to the
-    default engines."""
+def test_receiver_matrix_stride8_pll(frac):
+    """The serving configuration (stride-8 grouped PLL) through the
+    statistical matrix row: identical gates to the default stride."""
     wf = WFS["qpsk"]()
     k = wf.info.k
     mc = ModConfig(wf=wf, fe=4.0, fsymb=1.0)
@@ -116,8 +115,7 @@ def test_receiver_matrix_fused_engine(frac):
     rng = np.random.default_rng(3)
     x = x + 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)
                     ).astype(np.complex64)
-    rx = Receiver.create(fmt, DetectorConfig(threshold=0.5,
-                                             engine="fused"),
+    rx = Receiver.create(fmt, DetectorConfig(threshold=0.5),
                          pll_stride=8)
     fr = rx.receive(jnp.asarray(x))
     v = np.asarray(fr.valid)

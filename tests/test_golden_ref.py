@@ -27,14 +27,14 @@ def g(name):
 
 def test_cfg1_fir_design_matches_reference():
     """design_rif_fen(31,'pb',0.25,'hn') vs fir_design_windowed."""
-    from libtsd_tpu.ops.fir_design import fir_design_windowed
+    from libtsd_jax.ops.fir_design import fir_design_windowed
     h = np.asarray(fir_design_windowed(31, "lp", 0.25, "hn"))
     assert np.abs(h - g("cfg1_h")).max() < 2e-4  # float32 cos() paths
 
 
 def test_cfg1_signal_generators_match_reference():
     """sigcos + sigchirp regenerate the reference input."""
-    from libtsd_tpu.ops.signal import sigchirp, sigcos
+    from libtsd_jax.ops.signal import sigchirp, sigcos
     x = np.asarray(sigcos(0.01, 500)) + 0.1 * np.asarray(
         sigchirp(0.05, 0.45, 500))
     assert np.abs(x - g("cfg1_x")).max() < 1e-4
@@ -42,7 +42,7 @@ def test_cfg1_signal_generators_match_reference():
 
 def test_cfg1_filtering_matches_reference():
     """filtrer(h, x) golden: same taps, same input -> same output."""
-    from libtsd_tpu.ops.filter_rt import filter_signal
+    from libtsd_jax.ops.filter_rt import filter_signal
     y = np.asarray(filter_signal(jnp.asarray(g("cfg1_h")),
                                  jnp.asarray(g("cfg1_x"))))
     assert np.abs(y[:500] - g("cfg1_y")).max() < 2e-6
@@ -53,7 +53,7 @@ def test_cfg1_filtering_matches_reference():
 def test_cfg2_fft_matches_reference():
     """Orthonormal-scaled FFT of the chirp: exact (float32) agreement
     (the reference's 1/sqrt(N) convention, fourier.cc:119)."""
-    from libtsd_tpu.ops.fft import fft
+    from libtsd_jax.ops.fft import fft
     X = np.asarray(fft(jnp.asarray(g("cfg2_x"))))
     assert np.abs(X - g("cfg2_X")).max() < 2e-6
 
@@ -61,8 +61,8 @@ def test_cfg2_fft_matches_reference():
 def test_cfg2_correlogram_matches_reference():
     """Reference psd(real x) = pow2db(abs2(fft(x*hann_periodic)))[:N/2]
     (fourier.hpp:741-755).  Nulls wobble in float32; gate the 99th pct."""
-    from libtsd_tpu.ops.fft import fft
-    from libtsd_tpu.ops.window import window
+    from libtsd_jax.ops.fft import fft
+    from libtsd_jax.ops.window import window
     x = g("cfg2_x")
     w = np.asarray(window("hann", 4096, sym=False))
     Y = np.asarray(fft(jnp.asarray(x * w)))
@@ -72,7 +72,7 @@ def test_cfg2_correlogram_matches_reference():
 
 
 def test_cfg2_welch_matches_reference():
-    from libtsd_tpu.ops.psd import psd_welch
+    from libtsd_jax.ops.psd import psd_welch
     out = psd_welch(jnp.asarray(g("cfg2_x")).astype(jnp.complex64),
                     512, "hann")
     S = np.asarray(out[1] if isinstance(out, tuple) else out)
@@ -86,7 +86,7 @@ def test_cfg3_resampler_matches_reference():
     same output length, same alignment, tolerance-level agreement (the
     anti-alias cascades differ by design — BASELINE.md's 1e-5 bound is
     for like-for-like kernels; rate conversion is a different filter)."""
-    from libtsd_tpu.ops.resample import resample
+    from libtsd_jax.ops.resample import resample
     y = np.asarray(resample(jnp.asarray(g("cfg3_x")), 44100 / 48000))
     y_ref = g("cfg3_y")
     assert y.shape == y_ref.shape  # 3675 = 4000 * 147/160 exactly
@@ -99,7 +99,7 @@ def test_cfg3_resampler_matches_reference():
 def test_cfg4_fm_discriminator_matches_reference():
     """Quadrature discriminator vs discriminateur_fm (analogique.cc:18-76):
     exact (float32) agreement including the output scale convention."""
-    from libtsd_tpu.models.demod import quadrature_discriminator
+    from libtsd_jax.models.demod import quadrature_discriminator
     x = jnp.asarray(g("cfg4_x"))
     prev = jnp.zeros((1,), jnp.complex64)
     y = np.asarray(quadrature_discriminator(x, prev))
@@ -112,8 +112,8 @@ def test_cfg5_qam16_tx_matches_reference():
     """Same bits -> same RRC(0.25) osf-4 QAM-16 waveform as the reference
     modulator (modulateur.cc:19-250), up to its 3-sample latency
     convention: align, then require float32-exact agreement."""
-    from libtsd_tpu.models.modulator import ModConfig, Modulator
-    from libtsd_tpu.models.waveform import PulseShape, wf_qam
+    from libtsd_jax.models.modulator import ModConfig, Modulator
+    from libtsd_jax.models.waveform import PulseShape, wf_qam
     bits = jnp.asarray(g("cfg5_bits").astype(np.uint8))
     x_ref = g("cfg5_x")
     wf = wf_qam(16, PulseShape.rcs(0.25))
@@ -139,8 +139,8 @@ def test_cfg5_rx_decodes_reference_tx():
     floor (TX rrc (*) RX rrc truncation sidelobes); the measured EVM
     ~0.071 IS that floor, and decisions are still clean (QAM-16
     half-distance = 0.316 rms-relative)."""
-    from libtsd_tpu.models import ber as BER
-    from libtsd_tpu.models.receivers import Qam16Modem
+    from libtsd_jax.models import ber as BER
+    from libtsd_jax.models.receivers import Qam16Modem
     x = jnp.asarray(g("cfg5_x"))
     bits = g("cfg5_bits")
     m = Qam16Modem.create()

@@ -44,13 +44,13 @@ def g(name):
 # ------------------------------------------------------------- windows
 
 def test_window_chebyshev_matches_reference():
-    from libtsd_tpu.ops.window import chebyshev_window
+    from libtsd_jax.ops.window import chebyshev_window
     assert np.abs(np.asarray(chebyshev_window(64, 60))
                   - g("g2_win_cheb")).max() < 1e-5
 
 
 def test_window_kaiser_matches_reference():
-    from libtsd_tpu.ops.window import kaiser_window
+    from libtsd_jax.ops.window import kaiser_window
     assert np.abs(np.asarray(kaiser_window(64, 6.0))
                   - g("g2_win_kaiser")).max() < 1e-6
 
@@ -58,7 +58,7 @@ def test_window_kaiser_matches_reference():
 # ------------------------------------------------- FIR design familly
 
 def test_fir_designs_match_reference():
-    from libtsd_tpu.ops import fir_design as FD
+    from libtsd_jax.ops import fir_design as FD
     cases = [
         (FD.root_raised_cosine(63, 0.25, 4), "g2_fir_rcs"),   # fc=1/(2*4)
         (FD.raised_cosine(63, 0.25, 0.125), "g2_fir_cs"),
@@ -75,7 +75,7 @@ def test_fir_designs_match_reference():
 
 def test_fir_equiripple_irls_matches_reference():
     """Same 512-point D/W grid as golden_gen2.cc -> same IRLS fixpoint."""
-    from libtsd_tpu.ops.fir_design import fir_design_equiripple_grid
+    from libtsd_jax.ops.fir_design import fir_design_equiripple_grid
     n = 512
     f = 0.5 * np.arange(n) / n
     D = np.where(f <= 0.2, 1.0, np.where(f >= 0.25, 0.0,
@@ -95,7 +95,7 @@ def test_fir_equiripple_irls_matches_reference():
 def test_iir_design_coefficients_match_reference(name, order, proto, fc, rp, rs):
     """Expanded b/a of design_riia (reference stores ascending powers,
     monic in the HIGHEST power -> compare reversed)."""
-    from libtsd_tpu.ops.iir_design import design_iir
+    from libtsd_jax.ops.iir_design import design_iir
     b, a = design_iir(order, "lp", proto, fc, rp, rs).to_ba()
     ref_b, ref_a = g(f"g2_iir_{name}_b")[::-1], g(f"g2_iir_{name}_a")[::-1]
     assert np.abs(np.real(b) - ref_b).max() < 2e-6
@@ -107,7 +107,7 @@ def test_iir_elliptic_deviates_as_documented():
     coefficients deviate from the reference by a small, non-zero amount
     — and ours must agree with scipy's independent implementation."""
     import scipy.signal as ss
-    from libtsd_tpu.ops.iir_design import design_iir
+    from libtsd_jax.ops.iir_design import design_iir
     b, a = design_iir(5, "lp", "ellip", 0.15, 0.5, 50.0).to_ba()
     bs, as_ = ss.ellip(5, 0.5, 50.0, 0.3)
     assert np.abs(np.real(b) - bs).max() < 1e-9
@@ -129,8 +129,8 @@ def test_sos_runtime_matches_reference_steady_state(name, order, proto,
     docstring; the first ~64 samples differ in the reference's own warmup
     convention, its output there disagrees with lfilter on its own
     coefficients)."""
-    from libtsd_tpu.ops.filter_rt import Sos
-    from libtsd_tpu.ops.iir_design import design_iir
+    from libtsd_jax.ops.filter_rt import Sos
+    from libtsd_jax.ops.iir_design import design_iir
     x = jnp.asarray(g("g2_iir_x"))
     s = Sos.from_zpk(design_iir(order, "lp", proto, fc, rp, rs))
     _, y = s.step(s.init_for(x), x)
@@ -143,7 +143,7 @@ def test_sos_runtime_matches_reference_steady_state(name, order, proto,
 
 def test_biquad_matches_reference():
     """RBJ lowpass biquad; reference Poly coefs are ascending powers."""
-    from libtsd_tpu.ops.iir_design import BiquadSpec, design_biquad
+    from libtsd_jax.ops.iir_design import BiquadSpec, design_biquad
     b, a = design_biquad(BiquadSpec("lp", 0.1, 1.2))
     assert np.abs(b - g("g2_biquad_b")[::-1]).max() < 1e-6
     assert np.abs(a - g("g2_biquad_a")[::-1]).max() < 1e-6
@@ -152,8 +152,8 @@ def test_biquad_matches_reference():
 # ------------------------------------------------- spectral estimation
 
 def test_goertzel_matches_reference():
-    from libtsd_tpu.ops.fft import goertzel
-    from libtsd_tpu.ops.signal import sigcos, sigsin
+    from libtsd_jax.ops.fft import goertzel
+    from libtsd_jax.ops.signal import sigcos, sigsin
     x = sigcos(0.1, 500) + 0.5 * sigsin(0.17, 500)
     ref = g("g2_goertzel")
     for i, f0 in enumerate((0.1, 0.17, 0.3)):
@@ -161,8 +161,8 @@ def test_goertzel_matches_reference():
 
 
 def test_xcorr_matches_reference():
-    from libtsd_tpu.ops.corr import xcorr
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.corr import xcorr
+    from libtsd_jax.ops.fft import delay_signal
     x = jnp.asarray(g("g2_xcorr_x"))
     y = delay_signal(x, 5.5)
     _, c = xcorr(x, y, 127)
@@ -174,8 +174,8 @@ def test_xcorr_matches_reference():
 def test_delay_estimation_matches_reference():
     """estimation_délais parity: same fractional delay, same normalized
     score, to float32 rounding."""
-    from libtsd_tpu.ops.corr import estimate_delay
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.corr import estimate_delay
+    from libtsd_jax.ops.fft import delay_signal
     x = jnp.asarray(g("g2_xcorr_x"))
     d, s = estimate_delay(x, delay_signal(x, 5.5))
     ref = g("g2_delay_est")
@@ -188,7 +188,7 @@ def test_czt_reference_defect_documented():
     reference's czt does NOT match its own documented formula here (and
     its test suite never exercises czt) — keep the evidence asserted so
     the deviation stays documented."""
-    from libtsd_tpu.ops.fft import czt
+    from libtsd_jax.ops.fft import czt
     x = g("g2_xcorr_x").astype(np.complex128)
     n = len(x)
     k = np.arange(n)
@@ -205,8 +205,8 @@ def test_czt_reference_defect_documented():
 
 
 def test_freq_estim_matches_reference():
-    from libtsd_tpu.ops.psd import freq_estim
-    from libtsd_tpu.ops.signal import sigexp
+    from libtsd_jax.ops.psd import freq_estim
+    from libtsd_jax.ops.signal import sigexp
     tone = sigexp(0.12347, 1000)
     ref = g("g2_freqestim")
     for i, m in enumerate(("fft", "candan2", "quadratic")):
@@ -216,7 +216,7 @@ def test_freq_estim_matches_reference():
 def test_rfft_matches_reference():
     """Reference rfft returns the full packed spectrum; ours the n//2+1
     non-negative bins — compare those (orthonormal scaling both sides)."""
-    from libtsd_tpu.ops.fft import rfft
+    from libtsd_jax.ops.fft import rfft
     R = np.asarray(rfft(jnp.asarray(g("g2_rfft_x"))))
     assert np.abs(R - g("g2_rfft")[: len(R)]).max() < 1e-6
 
@@ -227,7 +227,7 @@ def test_dwt_haar_matches_reference():
     """Depth-3 Haar lifting: boundary-free, so full-vector agreement.
     The reference does not apply the normalization K inside lift_step
     (tod.cc:211-240 ignores Lift.K); divide ours out per level."""
-    from libtsd_tpu.ops.lifting import lift_dwt, lift_haar
+    from libtsd_jax.ops.lifting import lift_dwt, lift_haar
     x = jnp.asarray(g("g2_dwt_x"))
     d1, d2, d3, a3 = lift_dwt(x, lift_haar(), 3)
     K = np.sqrt(2.0)
@@ -243,7 +243,7 @@ def test_dwt_haar_matches_reference():
 def test_dwt_db2_interior_matches_reference():
     """db2 lifting, depth 1: interior agreement (boundary cells differ —
     zero vs periodized extension, module docstring)."""
-    from libtsd_tpu.ops.lifting import lift_dwt, lift_db2
+    from libtsd_jax.ops.lifting import lift_dwt, lift_db2
     x = jnp.asarray(g("g2_dwt_x"))
     d1, a1 = lift_dwt(x, lift_db2(), 1)
     Kd = (np.sqrt(3) - 1) / np.sqrt(2)
@@ -256,7 +256,7 @@ def test_dwt_db2_interior_matches_reference():
 # ---------------------------------------------------- LPC / Levinson
 
 def test_levinson_matches_reference():
-    from libtsd_tpu.models.stats import levinson_real
+    from libtsd_jax.models.stats import levinson_real
     r = np.array([1.0, 0.5, 0.2, 0.05, -0.01, 0.003])
     assert np.abs(levinson_real(r) - g("g2_levinson")).max() < 1e-6
 
@@ -268,8 +268,8 @@ def test_lpc_composite_matches_reference():
     (pure AR(6) signal, order-8 fit), so float32 autocorrelation noise
     moves the high-order coefficients at the 1e-2 level — gate there and
     cross-check the model against the signal itself (spectral peaks)."""
-    from libtsd_tpu.models.stats import levinson_real
-    from libtsd_tpu.ops.corr import xcorr
+    from libtsd_jax.models.stats import levinson_real
+    from libtsd_jax.ops.corr import xcorr
     x = jnp.asarray(g("g2_lpc_x"))
     _, cr = xcorr(x, x, 8)
     r = np.real(np.asarray(cr)[7:])  # lags 0..7
@@ -292,7 +292,7 @@ def test_detector_matches_reference():
     same single detection, same position (exact), sub-sample position
     within 0.01, gain/theta/score/SNR at reference precision
     (Detection fields, fourier.hpp:546-574)."""
-    from libtsd_tpu.models.detector import DetectorConfig, detect_pattern
+    from libtsd_jax.models.detector import DetectorConfig, detect_pattern
     x = jnp.asarray(g("g2_det_x"))
     motif = jnp.asarray(g("g2_det_motif"))
     det, _ = detect_pattern(x, motif, DetectorConfig(threshold=0.4, Ne=1024))
@@ -313,7 +313,7 @@ def test_detector_matches_reference():
 def test_transpo_bb_matches_reference():
     """Complex-input baseband transposition: pure NCO mix (no image
     filter), float32 phase-accumulation agreement."""
-    from libtsd_tpu.models.spread import TranspoBB, TranspoBBConfig
+    from libtsd_jax.models.spread import TranspoBB, TranspoBBConfig
     x = jnp.asarray(g("g2_transpo_x"))
     t = TranspoBB.create(TranspoBBConfig(fi=0.17), real_input=False)
     _, y = t.step(t.init(), x)

@@ -41,7 +41,7 @@ def g(name):
 # ------------------------------------------------------------ codes
 
 def test_mls_codes_match_reference():
-    from libtsd_tpu.models.lfsr import mls_code
+    from libtsd_jax.models.lfsr import mls_code
     for reglen in (5, 7):
         ref = g(f"g3_mls{reglen}")
         ours = np.asarray(mls_code(reglen), np.float32)
@@ -50,7 +50,7 @@ def test_mls_codes_match_reference():
 
 
 def test_barker_codes_match_reference():
-    from libtsd_tpu.models.lfsr import barker_code
+    from libtsd_jax.models.lfsr import barker_code
     for n in (11, 13):
         ref = g(f"g3_barker{n}")
         ours = np.asarray(barker_code(n), np.float32)  # +-1
@@ -60,7 +60,7 @@ def test_barker_codes_match_reference():
 # ------------------------------------------------------------ Kalman
 
 def test_kalman_random_walk_matches_reference():
-    from libtsd_tpu.models.kalman import LinearSSM, kalman_filter
+    from libtsd_jax.models.kalman import LinearSSM, kalman_filter
     ssm = LinearSSM(A=np.eye(1), C=np.eye(1),
                     Q=0.01 * np.eye(1), R=0.5 * np.eye(1))
     y = g("g3_kalman_y")
@@ -71,7 +71,7 @@ def test_kalman_random_walk_matches_reference():
 
 
 def test_kalman_steady_gain_matches_reference():
-    from libtsd_tpu.models.kalman import LinearSSM, kalman_steady_gain
+    from libtsd_jax.models.kalman import LinearSSM, kalman_steady_gain
     ssm = LinearSSM(A=np.eye(1), C=np.eye(1),
                     Q=0.01 * np.eye(1), R=0.5 * np.eye(1))
     K = kalman_steady_gain(ssm)
@@ -81,7 +81,7 @@ def test_kalman_steady_gain_matches_reference():
 # ------------------------------------------------------------ MUSIC
 
 def test_subspace_spectrum_matches_reference():
-    from libtsd_tpu.models.stats import subspace_spectrum
+    from libtsd_jax.models.stats import subspace_spectrum
     R = g("g3_music_R").reshape(8, 8)
     grid, S = subspace_spectrum(R, 2, 512)
     ref = g("g3_music_spectrum")
@@ -93,7 +93,7 @@ def test_subspace_spectrum_matches_reference():
 
 
 def test_psd_subspace_matches_reference():
-    from libtsd_tpu.models.stats import psd_subspace
+    from libtsd_jax.models.stats import psd_subspace
     x = g("g3_psdss_x")
     _, S = psd_subspace(x, 2, 512, 16)
     ref = g("g3_psdss")
@@ -105,7 +105,7 @@ def test_psd_subspace_matches_reference():
 # ------------------------------------------------------------ SNR
 
 def test_matzner_streaming_matches_reference():
-    from libtsd_tpu.models.snr import MatznerTracker
+    from libtsd_jax.models.snr import MatznerTracker
     x = g("g3_matzner_x")
     tr = MatznerTracker(0.1)
     _, (S, N) = tr.step(tr.init(), x)
@@ -124,7 +124,7 @@ def test_matzner_streaming_matches_reference():
 # ------------------------------------------------------------ CIC
 
 def test_cic_decimator_matches_reference():
-    from libtsd_tpu.ops.resample import Cic, CicConfig
+    from libtsd_jax.ops.resample import Cic, CicConfig
     x = g("g3_cic_x")  # integer-valued floats
     cic = Cic(config=CicConfig(R=8, N=3, M=1), mode="d")
     _, y = cic.step(cic.init(), x)
@@ -136,7 +136,7 @@ def test_cic_decimator_matches_reference():
 # ------------------------------------------------------------ AM
 
 def test_am_modulators_match_reference():
-    from libtsd_tpu.models.analog import AMConfig, am_modulate
+    from libtsd_jax.models.analog import AMConfig, am_modulate
     audio = g("g3_am_audio")
     for mode, name, tol in (("dsb", "g3_am_dsb", 2e-6),
                             ("dsb-sc", "g3_am_dsbsc", 2e-6),
@@ -150,7 +150,7 @@ def test_am_modulators_match_reference():
 # ------------------------------------------------------------ capacity
 
 def test_shannon_capacity_matches_reference():
-    from libtsd_tpu.models.channel import shannon_capacity
+    from libtsd_jax.models.channel import shannon_capacity
     ref = g("g3_capacity")
     for snr_lin, r in zip((0.1, 1.0, 10.0, 100.0), ref):
         c = shannon_capacity(10 * np.log10(snr_lin), 1.0)
@@ -160,7 +160,7 @@ def test_shannon_capacity_matches_reference():
 # ------------------------------------------------------------ geometry
 
 def test_cardan_quaternion_roundtrip_matches_reference():
-    from libtsd_tpu.utils import geometry as geo
+    from libtsd_jax.utils import geometry as geo
     R = np.asarray(geo.cardan_to_rotmat(0.3, -0.5, 1.2))
     ref_R = g("g3_rotmat").reshape(3, 3)
     assert np.abs(R - ref_R).max() < 1e-5
@@ -185,10 +185,10 @@ def test_cardan_quaternion_roundtrip_matches_reference():
 # ------------------------------------------------------------ date/time
 
 def test_datetime_j2000_and_sidereal_match_reference():
-    from libtsd_tpu.utils.timedate import (gregorian_to_jd, sidereal_time,
+    from libtsd_jax.utils.timedate import (gregorian_to_jd, sidereal_time,
                                            local_sidereal_time)
     ref = g("g3_time")  # f64
-    from libtsd_tpu.utils.timedate import j2000
+    from libtsd_jax.utils.timedate import j2000
     jd1 = gregorian_to_jd(2021, 2, 8 + 12 / 24)
     jd2 = gregorian_to_jd(2000, 1, 1 + (18 + 30 / 60 + 15 / 3600) / 24)
     # REFERENCE DEFECT (doc vs code): temps.hpp:226 documents J2000() as
@@ -210,7 +210,7 @@ def test_datetime_j2000_and_sidereal_match_reference():
 # ------------------------------------------------------------ interpolators
 
 def test_interpolator_coefs_match_reference():
-    from libtsd_tpu.ops.resample import (cspline_coefs, linear_coefs,
+    from libtsd_jax.ops.resample import (cspline_coefs, linear_coefs,
                                          lagrange_coefs)
     ref = g("g3_itrp")
     ours = []
@@ -223,7 +223,7 @@ def test_interpolator_coefs_match_reference():
 
 
 def test_sinc_interpolator_coefs_match_reference():
-    from libtsd_tpu.ops.resample import sinc_interp_coefs
+    from libtsd_jax.ops.resample import sinc_interp_coefs
     ref = g("g3_itrp_sinc")  # 2 x 15 taps, UNNORMALIZED (reference)
     for i, tau in enumerate((0.25, 0.75)):
         r = ref[i * 15:(i + 1) * 15]

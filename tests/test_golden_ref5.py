@@ -28,7 +28,7 @@ def g(name):
 # ------------------------------------------------------------- PSD
 
 def test_psd_correlogram_matches_reference():
-    from libtsd_tpu.ops.psd import psd
+    from libtsd_jax.ops.psd import psd
     xc = jnp.asarray(g("g5_psd_xc"))
     _, S = psd(xc)
     ref = g("g5_psd_c")
@@ -39,8 +39,8 @@ def test_psd_correlogram_matches_reference():
     assert np.abs(np.asarray(S)[m] - ref[m]).max() < 2e-2   # dB
     # real input: the reference returns the positive half of the rfft
     # periodogram (fourier.hpp:741-760)
-    from libtsd_tpu.ops.fft import rfft
-    from libtsd_tpu.ops.window import window as mkwin
+    from libtsd_jax.ops.fft import rfft
+    from libtsd_jax.ops.window import window as mkwin
     xr = jnp.asarray(g("g5_psd_xr"))
     n = xr.shape[-1]
     w = jnp.asarray(mkwin("hn", n, sym=False), jnp.float32)
@@ -53,7 +53,7 @@ def test_psd_correlogram_matches_reference():
 
 
 def test_psd_welch_matches_reference():
-    from libtsd_tpu.ops.psd import psd_welch
+    from libtsd_jax.ops.psd import psd_welch
     x = jnp.asarray(g("g5_welch_x"))
     _, S = psd_welch(x, 128, "hn")
     ref = g("g5_welch")
@@ -66,7 +66,7 @@ def test_psd_welch_matches_reference():
 # ----------------------------------------------------------- Hilbert
 
 def test_hilbert_oneshots_match_reference():
-    from libtsd_tpu.models.analog import hilbert_analytic, hilbert_tfd
+    from libtsd_jax.models.analog import hilbert_analytic, hilbert_tfd
     x = jnp.asarray(g("g5_hilb_x"))
     z = np.asarray(hilbert_analytic(x, 127))
     ref = g("g5_hilb_fir")
@@ -79,7 +79,7 @@ def test_hilbert_oneshots_match_reference():
 # ---------------------------------------------- streaming runtimes
 
 def test_small_runtimes_match_reference():
-    from libtsd_tpu.ops.filter_rt import MovingAverage, DcBlocker, DelayLine
+    from libtsd_jax.ops.filter_rt import MovingAverage, DcBlocker, DelayLine
     x = jnp.asarray(g("g5_rt_x"))
     mg = MovingAverage(K=8)
     _, y = mg.step(mg.init(), x)
@@ -95,7 +95,7 @@ def test_small_runtimes_match_reference():
 # -------------------------------------------------------------- DSSS
 
 def test_dsss_matches_reference():
-    from libtsd_tpu.models.spread import dsss_modulate
+    from libtsd_jax.models.spread import dsss_modulate
     x = jnp.asarray(g("g5_dsss_x"))
     chips = jnp.asarray(g("g5_dsss_chips"))
     y = dsss_modulate(x, chips, osf_in=int(chips.shape[0]))
@@ -106,7 +106,7 @@ def test_dsss_matches_reference():
 # --------------------------------------------------------------- ECP
 
 def test_ecp_deterministic_path_matches_reference():
-    from libtsd_tpu.models.channel import ChannelConfig, propagation_channel
+    from libtsd_jax.models.channel import ChannelConfig, propagation_channel
     x = jnp.asarray(g("g5_ecp_x"))
     cfg = ChannelConfig(fe=1.0, fsymb=0.25, fbit=0.25, Eb_N0=200.0,
                         freq_offset=0.01, phase_offset=0.7,
@@ -121,7 +121,7 @@ def test_ecp_deterministic_path_matches_reference():
 
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_symbol_mapping_matches_reference(k):
-    from libtsd_tpu.models.waveform import (bits_to_symbol_indices,
+    from libtsd_jax.models.waveform import (bits_to_symbol_indices,
                                             symbol_indices_to_bits)
     bits = jnp.asarray(g("g5_map_bits"), jnp.int32)
     idx = bits_to_symbol_indices(bits, k)

@@ -4,7 +4,7 @@ BEHAVIORAL golden, not a sample-level one: our `cqt_stream` redesigns the
 reference's CQT::Impl for static shapes (the reference consumes
 variable-size chunks per step — `nb_data_attendu` is data-dependent,
 cqt.cc:286-291 — which is exactly the dynamic-shape pattern SURVEY §7
-rules out on TPU; we double the FFT buffer and hop by N/2 instead).  The
+rules out under jit; we double the FFT buffer and hop by N/2 instead).  The
 kernel truncation grids therefore differ and magnitudes agree only in
 shape, so the golden pins what is exactly shared (the geometric bin
 grid) and the time/frequency localization behavior on a two-tone signal
@@ -24,7 +24,7 @@ def g(name):
 
 
 def test_cqt_stream_matches_reference_behavior():
-    from libtsd_tpu.ops.cqt import (cqt_stream_kernel, cqt_stream,
+    from libtsd_jax.ops.cqt import (cqt_stream_kernel, cqt_stream,
                                     cqt_interpolate)
     x = g("g6_cqt_x")
     dims = g("g6_cqt_dims").astype(int)
@@ -62,7 +62,7 @@ def test_cqt_stream_matches_reference_behavior():
 
 
 def _run_case(tag, fmin, fmax, gamma):
-    from libtsd_tpu.ops.cqt import (cqt_stream_kernel, cqt_stream,
+    from libtsd_jax.ops.cqt import (cqt_stream_kernel, cqt_stream,
                                     cqt_interpolate)
     x = g(tag + "_x")
     dims = g(tag + "_dims").astype(int)

@@ -20,7 +20,7 @@ import os
 import numpy as np
 import pytest
 
-from libtsd_tpu.utils.wav import wav_load, wav_save
+from libtsd_jax.utils.wav import wav_load, wav_save
 
 G = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -9,12 +9,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import waveform as WF
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.detector import DetectorConfig
-from libtsd_tpu.models.frame import FrameFormat, Receiver, Transmitter
-from libtsd_tpu.models.modulator import ModConfig
-from libtsd_tpu.ops.fft import delay_signal
+from libtsd_jax.models import waveform as WF
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.detector import DetectorConfig
+from libtsd_jax.models.frame import FrameFormat, Receiver, Transmitter
+from libtsd_jax.models.modulator import ModConfig
+from libtsd_jax.ops.fft import delay_signal
 
 
 def _fmt(pay_wf, hdr_wf, npay=512):
@@ -64,7 +64,7 @@ def test_header_wf_frame_structure():
     fmt_h = _fmt(pay_wf, WF.wf_bpsk(ps))
     payload = randbits(jax.random.PRNGKey(2), 512)
     w_h = np.asarray(Transmitter.create(fmt_h).transmit(payload))
-    from libtsd_tpu.models.modulator import Modulator
+    from libtsd_jax.models.modulator import Modulator
     mod = Modulator.create(fmt_h.modulation)
     hdr_syms = WF.wf_bpsk(ps).make_symbols(
         jnp.asarray(fmt_h.header_bits, jnp.int8))

@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from libtsd_tpu.ops import iir_design as ID
-from libtsd_tpu.ops.poly import freq_response_ba, group_delay_ba
+from libtsd_jax.ops import iir_design as ID
+from libtsd_jax.ops.poly import freq_response_ba, group_delay_ba
 
 
 def resp(zpk, f):
@@ -174,7 +174,7 @@ def test_design_iir_pm_alias_validates_band_edges():
     """'pm' (passe-milieu) must hit the same band-edge validation as
     'bp' — it silently produced a marginally unstable filter."""
     import pytest
-    from libtsd_tpu.ops.iir_design import design_iir
+    from libtsd_jax.ops.iir_design import design_iir
     with pytest.raises(ValueError, match="band edges"):
         design_iir(4, "pm", "butt", 0.2)
     z = design_iir(4, "pm", "butt", 0.1, fcut2=0.2)

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from libtsd_tpu.io import (RingBuffer, Rebuffer, cs16_to_cf32, cu8_to_cf32,
+from libtsd_jax.io import (RingBuffer, Rebuffer, cs16_to_cf32, cu8_to_cf32,
                            deinterleave, interleave, native_available)
 
 
@@ -115,7 +115,7 @@ def test_native_faster_than_numpy_on_big_convert():
 def test_iq_file_reader_roundtrip(tmp_path):
     """Prefetching IQ reader delivers the file exactly, in order, with the
     final partial block truncated (the framework's data loader)."""
-    from libtsd_tpu.io.streamio import IqFileReader
+    from libtsd_jax.io.streamio import IqFileReader
     rng = np.random.default_rng(3)
     # 100k IQ pairs: NOT a multiple of the block size -> partial tail
     d = rng.integers(-2000, 2000, size=(100000, 2)).astype(np.int16)
@@ -132,7 +132,7 @@ def test_iq_file_reader_roundtrip(tmp_path):
 def test_iq_file_reader_int8_feeds_chain_dtype(tmp_path):
     """cs8 captures stay int8 end-to-end (the chain kernel's int8 tier
     ingest dtype)."""
-    from libtsd_tpu.io.streamio import IqFileReader
+    from libtsd_jax.io.streamio import IqFileReader
     rng = np.random.default_rng(4)
     d = rng.integers(-127, 127, size=(4096, 2)).astype(np.int8)
     p = str(tmp_path / "cap8.iq")
@@ -146,7 +146,7 @@ def test_iq_file_reader_int8_feeds_chain_dtype(tmp_path):
 
 def test_iq_file_reader_python_fallback(tmp_path, monkeypatch):
     """The pure-python path (no native lib) returns identical blocks."""
-    import libtsd_tpu.io.streamio as sio
+    import libtsd_jax.io.streamio as sio
     rng = np.random.default_rng(5)
     d = rng.standard_normal((5000, 2)).astype(np.float32)
     p = str(tmp_path / "cap32.iq")
@@ -163,9 +163,9 @@ def test_stream_runner_matches_oneshot_real():
     """StreamRunner(block) over chunked pushes == one-shot filtering, with
     the remainder held in the ring buffer (never silently dropped)."""
     import jax.numpy as jnp
-    from libtsd_tpu.io import StreamRunner
-    from libtsd_tpu.ops import fir_design as FD
-    from libtsd_tpu.ops.filter_rt import Fir, fir_filter
+    from libtsd_jax.io import StreamRunner
+    from libtsd_jax.ops import fir_design as FD
+    from libtsd_jax.ops.filter_rt import Fir, fir_filter
 
     rng = np.random.default_rng(0)
     h = FD.fir_lowpass(65, 0.2)
@@ -186,8 +186,8 @@ def test_stream_runner_matches_oneshot_real():
 
 def test_stream_runner_complex_sink():
     import jax.numpy as jnp
-    from libtsd_tpu.io import StreamRunner
-    from libtsd_tpu.ops.filter_rt import OlaFft, fir_filter
+    from libtsd_jax.io import StreamRunner
+    from libtsd_jax.ops.filter_rt import OlaFft, fir_filter
 
     rng = np.random.default_rng(1)
     h = rng.standard_normal(33)
@@ -220,8 +220,8 @@ def test_rebuffer_oversize_push_no_drop():
 def test_stream_runner_oversize_chunks(tmp_path):
     """StreamRunner fed chunks larger than the ring keeps every sample."""
     import jax.numpy as jnp
-    from libtsd_tpu.io.runner import StreamRunner
-    from libtsd_tpu.ops.filter_rt import Fir
+    from libtsd_jax.io.runner import StreamRunner
+    from libtsd_jax.ops.filter_rt import Fir
     h = np.zeros(5, np.float64); h[0] = 1.0       # identity FIR
     blk = Fir.create(h)
     runner = StreamRunner(blk, block_len=128, complex_in=False)
@@ -239,7 +239,7 @@ def test_stream_runner_oversize_chunks(tmp_path):
 def test_ringbuffer_wraparound_exactness():
     """The two-span memcpy rewrite must be exact across many wrap points
     (odd push/pop sizes against a small capacity)."""
-    from libtsd_tpu.io.streamio import RingBuffer
+    from libtsd_jax.io.streamio import RingBuffer
     rng = np.random.default_rng(3)
     rb = RingBuffer(257, complex_iq=True)
     fed, got = [], []
@@ -264,7 +264,7 @@ def test_ringbuffer_wraparound_exactness():
 
 
 def test_ringbuffer_alloc_failure_raises():
-    from libtsd_tpu.io.streamio import RingBuffer, native_available
+    from libtsd_jax.io.streamio import RingBuffer, native_available
     if not native_available():
         pytest.skip("native lib unavailable")
     with pytest.raises(MemoryError):
@@ -272,7 +272,7 @@ def test_ringbuffer_alloc_failure_raises():
 
 
 def test_iqreader_closed_raises(tmp_path):
-    from libtsd_tpu.io.streamio import IqFileReader
+    from libtsd_jax.io.streamio import IqFileReader
     p = tmp_path / "cap.cs16"
     p.write_bytes(np.arange(64, dtype=np.int16).tobytes())
     rd = IqFileReader(str(p), "cs16", block_iq=8)
@@ -285,9 +285,9 @@ def test_stream_runner_flush_processes_tail():
     """A finite stream with a non-block-multiple length: flush() pads and
     processes the tail instead of silently dropping it."""
     import jax.numpy as jnp
-    from libtsd_tpu.io.runner import StreamRunner
-    from libtsd_tpu.ops import fir_design as FD
-    from libtsd_tpu.ops.filter_rt import Fir
+    from libtsd_jax.io.runner import StreamRunner
+    from libtsd_jax.ops import fir_design as FD
+    from libtsd_jax.ops.filter_rt import Fir
     h = FD.fir_lowpass(31, 0.2)
     blk = Fir.create(np.asarray(h, np.complex128))
     n = 4096 + 1000                     # 1000-sample tail
@@ -307,9 +307,9 @@ def test_stream_runner_flush_processes_tail():
 
 
 def test_stream_runner_depth_validation():
-    from libtsd_tpu.io.runner import StreamRunner
-    from libtsd_tpu.ops.filter_rt import Fir
-    from libtsd_tpu.ops import fir_design as FD
+    from libtsd_jax.io.runner import StreamRunner
+    from libtsd_jax.ops.filter_rt import Fir
+    from libtsd_jax.ops import fir_design as FD
     blk = Fir.create(np.asarray(FD.fir_lowpass(7, 0.2), np.complex128))
     with pytest.raises(ValueError, match="depth"):
         StreamRunner(blk, 1024, depth=0)
@@ -320,7 +320,7 @@ def test_ring_buffer_domain_validation():
     paired into bogus I/Q; complex into a real ring was mangled."""
     import numpy as np
     import pytest as _pytest
-    from libtsd_tpu.io.streamio import RingBuffer
+    from libtsd_jax.io.streamio import RingBuffer
     rb = RingBuffer(1024, complex_iq=True)
     with _pytest.raises(ValueError):
         rb.push(np.zeros(64, np.float32))
@@ -335,7 +335,7 @@ def test_iq_reader_partial_pair_tail(tmp_path):
     """REGRESSION: a file tail holding only a partial I/Q pair returned
     an empty (0, 2) block instead of the documented None sentinel."""
     import numpy as np
-    from libtsd_tpu.io.streamio import IqFileReader
+    from libtsd_jax.io.streamio import IqFileReader
     p = str(tmp_path / "t.cs16")
     data = np.arange(64, dtype=np.int16).tobytes() + bytes([1])  # +1 byte
     open(p, "wb").write(data)
@@ -349,7 +349,7 @@ def test_datetime_microsecond_arithmetic():
     """REGRESSION: DateTime +/- Duration routed through the float64
     Julian day (~47 us resolution near modern dates), silently dropping
     small durations."""
-    from libtsd_tpu.utils.timedate import (Calendar, DateTime, Duration,
+    from libtsd_jax.utils.timedate import (Calendar, DateTime, Duration,
                                            TimeOfDay, datetime_add,
                                            datetime_diff)
     dt = DateTime(Calendar(2026, 8, 21), TimeOfDay(12, 0, 0.0))
@@ -364,7 +364,7 @@ def test_checkpoint_dtype_mismatch_rejected(tmp_path):
     import numpy as np
     import jax.numpy as jnp
     import pytest as _pytest
-    from libtsd_tpu.utils.checkpoint import (save_stream_state,
+    from libtsd_jax.utils.checkpoint import (save_stream_state,
                                              load_stream_state)
     st = {"a": jnp.zeros((4,), jnp.complex64)}
     p = str(tmp_path / "c.npz")

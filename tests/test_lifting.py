@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.ops.lifting import (
+from libtsd_jax.ops.lifting import (
     Laurent, Lift, LiftStep, cdf_filters, factor_lifting, lift_bior35,
     lift_cdf53, lift_db2, lift_dwt, lift_dwt_level, lift_haar, lift_idwt,
     lift_idwt_level, lift_polyphase, lift_qmf)

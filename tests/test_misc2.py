@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.utils import log as L
-from libtsd_tpu.utils import checkpoint as CKPT
-from libtsd_tpu.ops import ct as CT
-from libtsd_tpu.ops.fft import goertzel_stream
-from libtsd_tpu.ops.resample import polyphase_form, ipolyphase_form
-from libtsd_tpu.models.carrier_rec import Rpll, CpllConfig
+from libtsd_jax.utils import log as L
+from libtsd_jax.utils import checkpoint as CKPT
+from libtsd_jax.ops import ct as CT
+from libtsd_jax.ops.fft import goertzel_stream
+from libtsd_jax.ops.resample import polyphase_form, ipolyphase_form
+from libtsd_jax.models.carrier_rec import Rpll, CpllConfig
 
 
 def test_logging_sink():
@@ -89,8 +89,8 @@ def test_polyphase_form_roundtrip():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from libtsd_tpu.ops import filter_rt as FR
-    from libtsd_tpu.ops import fir_design as FD
+    from libtsd_jax.ops import filter_rt as FR
+    from libtsd_jax.ops import fir_design as FD
     h = FD.fir_lowpass(33, 0.1)
     blk = FR.Fir.create(h)
     rng = np.random.default_rng(0)
@@ -108,12 +108,11 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_checkpoint_complex_state_as_planes(tmp_path):
-    """Complex leaves are saved/restored as re/im planes (raw complex
-    host<->device transfers are UNIMPLEMENTED on some TPU runtimes) and
-    a mismatched tree structure is rejected."""
+    """Complex leaves are saved/restored as re/im planes (config.to_ri)
+    and a mismatched tree structure is rejected."""
     import pytest
-    from libtsd_tpu.ops import filter_rt as FR
-    from libtsd_tpu.ops import fir_design as FD
+    from libtsd_jax.ops import filter_rt as FR
+    from libtsd_jax.ops import fir_design as FD
     h = FD.fir_lowpass(17, 0.2)
     blk = FR.Fir.create(h)
     rng = np.random.default_rng(3)
@@ -146,10 +145,10 @@ def test_checkpoint_bytes_roundtrip():
 
 
 def test_eye_diagram(tmp_path):
-    from libtsd_tpu.viz.figure import plot_eye
-    from libtsd_tpu.models import waveform as WF
-    from libtsd_tpu.models.modulator import ModConfig, Modulator
-    from libtsd_tpu.models.bitstream import randbits
+    from libtsd_jax.viz.figure import plot_eye
+    from libtsd_jax.models import waveform as WF
+    from libtsd_jax.models.modulator import ModConfig, Modulator
+    from libtsd_jax.models.bitstream import randbits
     wf = WF.wf_bpsk(WF.PulseShape.rcs(0.3))
     mod = Modulator.create(ModConfig(wf=wf, fe=8.0, fsymb=1.0))
     x, _ = mod.modulate(randbits(jax.random.PRNGKey(0), 200))
@@ -165,7 +164,7 @@ def test_resample_freq_degenerate_guards():
     import jax.numpy as jnp
     import numpy as np
     import pytest as _pytest
-    from libtsd_tpu.ops.fft import resample_freq
+    from libtsd_jax.ops.fft import resample_freq
     x = jnp.asarray(np.arange(16.0, dtype=np.float32))
     with _pytest.raises(ValueError):
         resample_freq(x, 1.0 / 16)
@@ -176,7 +175,7 @@ def test_resample_freq_degenerate_guards():
 def test_kalman_steady_gain_iters_guard():
     import pytest as _pytest
     import numpy as np
-    from libtsd_tpu.models.kalman import LinearSSM, kalman_steady_gain
+    from libtsd_jax.models.kalman import LinearSSM, kalman_steady_gain
     ssm = LinearSSM(A=np.eye(1), C=np.eye(1),
                     Q=np.eye(1) * 0.1, R=np.eye(1))
     with _pytest.raises(ValueError):

@@ -1,9 +1,9 @@
 """Multi-process (multi-"host") scale-out test: N real OS processes join
-via jax.distributed.initialize over gloo and run the sharded fused
+via jax.distributed.initialize over gloo and run the sharded
 FIR+periodogram chain SPMD (parallel/launch.py + parallel/chain.py).
 
-This is the DCN half of SURVEY §5.8 validated the only way a single-chip
-environment allows — real separate processes, real collectives, checksum
+This is the cross-host half of SURVEY §5.8, validated as an explicit CPU
+simulation — real separate processes, real collectives, checksum
 pinned to the single-device oracle (examples/multihost_demo.py launcher
 asserts it and prints MULTIHOST OK).
 """

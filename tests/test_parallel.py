@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.ops import filter_rt as FR
-from libtsd_tpu.ops import fir_design as FD
-from libtsd_tpu.parallel import make_mesh, channel_sharding, sharded_fir, sharded_chain
-from libtsd_tpu.utils.testing import check_max_error
+from libtsd_jax.ops import filter_rt as FR
+from libtsd_jax.ops import fir_design as FD
+from libtsd_jax.parallel import make_mesh, channel_sharding, sharded_fir, sharded_chain
+from libtsd_jax.utils.testing import check_max_error, fir_periodogram_ref
 
 rng = np.random.default_rng(11)
 
@@ -73,100 +73,40 @@ def test_sharded_jit_compiles():
     assert y.sharding.spec == channel_sharding(mesh).spec
 
 
-def test_sharded_fused_chain_matches_unsharded():
-    """The flagship composition: Pallas FIR+periodogram kernel under
-    shard_map over ("chan","time") with halo exchange must equal the
-    single-device kernel (and the numpy oracle)."""
-    from libtsd_tpu.ops.filter_rt import fir_toeplitz_mats
-    from libtsd_tpu.ops.pallas.chain import fir_periodogram4096
-    from libtsd_tpu.parallel import sharded_fir_periodogram4096
+@pytest.mark.parametrize("chan,time", [(2, 4), (4, 2), (1, 8), (8, 1)])
+def test_sharded_chain_periodogram_matches_unsharded(chan, time):
+    """The metric chain under shard_map over ("chan","time"), with the
+    ppermute FIR halo and the psum of partial spectra, equals the
+    one-device chain and the float64 oracle."""
+    from libtsd_jax.ops.chain import fir_periodogram4096
+    from libtsd_jax.parallel import sharded_fir_periodogram4096
 
-    mesh = make_mesh(chan=2, time=4)
-    h = FD.fir_lowpass(200, 0.15)
-    G = jnp.asarray(fir_toeplitz_mats(np.asarray(h, np.float64)), jnp.float32)
-    C, N = 4, 4 * 65536          # 65536 per time shard (one kernel chunk)
+    mesh = make_mesh(chan=chan, time=time)
+    h = jnp.asarray(FD.fir_lowpass(200, 0.15), jnp.float32)
+    C, N = 8, time * 2 * 4096
     x = jnp.asarray(rng.standard_normal((C, N)), jnp.float32)
     xs = jax.device_put(x, channel_sharding(mesh))
-
-    acc_sh = np.asarray(sharded_fir_periodogram4096(
-        mesh, xs, G, precision="highest", interpret=True))
-    acc_1dev = np.asarray(fir_periodogram4096(
-        x, G, interpret=True, precision="highest"))
+    acc_sh = np.asarray(sharded_fir_periodogram4096(mesh, xs, h))
+    acc_1 = np.asarray(fir_periodogram4096(x, h))
     # identical math modulo fp32 re-association of the per-shard sums
-    assert np.max(np.abs(acc_sh - acc_1dev)) / acc_1dev.max() < 1e-5
-
-    y = np.asarray(FR.fir_filter(h, x), np.float64)
-    ref = np.zeros((C, 4096))
-    for c in range(C):
-        for f in range(N // 4096):
-            ref[c] += np.abs(np.fft.fft(y[c, f * 4096:(f + 1) * 4096])) ** 2
+    assert np.max(np.abs(acc_sh - acc_1)) / acc_1.max() < 1e-5
+    ref = fir_periodogram_ref(np.asarray(x), h)
     assert np.max(np.abs(acc_sh - ref)) / ref.max() < 1e-4
 
 
-def test_sharded_fused_chain_split_precision():
-    """Split precision under the mesh stays inside the reference's 1e-2
-    large-n FFT tolerance (/root/reference/core/tests/test-fourier.cc:256)."""
-    from libtsd_tpu.ops.filter_rt import fir_toeplitz_mats
-    from libtsd_tpu.parallel import sharded_fir_periodogram4096
+def test_sharded_chain_periodogram_int16_ingest():
+    """int16 ADC samples through the sharded chain (the halo carries
+    them as the chain's history)."""
+    from libtsd_jax.parallel import sharded_fir_periodogram4096
 
     mesh = make_mesh(chan=4, time=2)
-    h = FD.fir_lowpass(128, 0.2)
-    G = jnp.asarray(fir_toeplitz_mats(np.asarray(h, np.float64)), jnp.float32)
-    C, N = 4, 2 * 65536
-    x = jnp.asarray(rng.standard_normal((C, N)), jnp.float32)
-    xs = jax.device_put(x, channel_sharding(mesh))
-    acc = np.asarray(sharded_fir_periodogram4096(
-        mesh, xs, G, precision="split", interpret=True))
-    y = np.asarray(FR.fir_filter(h, x), np.float64)
-    ref = np.zeros((C, 4096))
-    for c in range(C):
-        for f in range(N // 4096):
-            ref[c] += np.abs(np.fft.fft(y[c, f * 4096:(f + 1) * 4096])) ** 2
-    assert np.max(np.abs(acc - ref)) / ref.max() < 1e-2
-
-
-def test_sharded_chain_fused_remote_dma_halo():
-    """halo="fused": the overlap halo rides `make_async_remote_copy`
-    INSIDE the Pallas kernel (SURVEY §5.8 / step 6 — comm fused with
-    compute).  Validated on the virtual mesh via the Pallas TPU interpret
-    machinery, which simulates the inter-device DMAs, barrier semaphores
-    and ring ordering; with race detection on, a misordered send/compute
-    would fail the test."""
-    from jax.experimental.pallas import tpu as pltpu
-    from libtsd_tpu.ops.filter_rt import fir_toeplitz_mats
-    from libtsd_tpu.ops.pallas.chain import fir_periodogram4096
-    from libtsd_tpu.parallel import sharded_fir_periodogram4096
-
-    # NOTE: the interpret machinery runs every simulated device's program
-    # concurrently (they rendezvous on threading.Barrier) on XLA:CPU's
-    # pool of os.cpu_count() threads — more simulated devices than
-    # physical cores DEADLOCKS (verified: 8 devices on this 4-core box
-    # hangs, <=4 is reliable).  Keep fused-halo tests at <=4 devices.
-    mesh = make_mesh(chan=1, time=4)
-    h = FD.fir_lowpass(200, 0.15)
-    G = jnp.asarray(fir_toeplitz_mats(np.asarray(h, np.float64)), jnp.float32)
-    C, N = 2, 4 * 8192           # 8192 per time shard (tb=1 kernel chunks)
-    x = jnp.asarray(rng.standard_normal((C, N)), jnp.float32)
-    xs = jax.device_put(x, channel_sharding(mesh))
-
-    acc_f = np.asarray(jax.jit(lambda a, g: sharded_fir_periodogram4096(
-        mesh, a, g, precision="highest", interpret=True, halo="fused",
-        tb=1))(xs, G))
-    acc_1 = np.asarray(fir_periodogram4096(
-        x, G, interpret=True, precision="highest", tb=1))
-    assert np.max(np.abs(acc_f - acc_1)) / acc_1.max() < 1e-5
-
-    # tiny race-detected run (the detector is slow — keep it minimal)
-    mesh2 = make_mesh(chan=1, time=2)
-    x2 = x[:1, : 2 * 4096]
-    xs2 = jax.device_put(x2, channel_sharding(mesh2))
-    acc_r = np.asarray(jax.jit(lambda a, g: sharded_fir_periodogram4096(
-        mesh2, a, g, precision="highest",
-        interpret=pltpu.InterpretParams(detect_races=True),
-        halo="fused", tb=1))(xs2, G))
-    acc_r1 = np.asarray(fir_periodogram4096(
-        x2, G, interpret=True, precision="highest", tb=1))
-    assert np.max(np.abs(acc_r - acc_r1)) / acc_r1.max() < 1e-5
+    h = jnp.asarray(FD.fir_lowpass(256, 0.2), jnp.float32)
+    C, N = 4, 2 * 2 * 4096
+    x = rng.integers(-2048, 2048, (C, N)).astype(np.int16)
+    xs = jax.device_put(jnp.asarray(x), channel_sharding(mesh))
+    acc = np.asarray(sharded_fir_periodogram4096(mesh, xs, h))
+    ref = fir_periodogram_ref(x, h)
+    assert np.max(np.abs(acc - ref)) / ref.max() < 1e-4
 
 
 def test_baseline_config3_sharded_resampler_chain():
@@ -175,7 +115,7 @@ def test_baseline_config3_sharded_resampler_chain():
     mesh — sharded output must equal the unsharded computation."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
-    from libtsd_tpu.ops import resample as RS
+    from libtsd_jax.ops import resample as RS
 
     mesh = make_mesh(chan=8, time=1)
     h = FD.fir_lowpass(256, 0.2)
@@ -200,36 +140,13 @@ def test_baseline_config3_sharded_resampler_chain():
     check_max_error(z, z_ref, 1e-5)
 
 
-def test_sharded_ola_pallas_matches_unsharded():
-    """Sequence parallelism extends to the fused Pallas overlap-save OLA
-    engine: its streaming state is exactly the last-V input samples, i.e.
-    the time-shard halo, so sharded_fir composes with OlaFft(pallas)
-    unchanged — sharded output == unsharded filtering."""
-    from libtsd_tpu.ops.filter_rt import OlaFft
-
-    mesh = make_mesh(chan=2, time=4)
-    h = rng.standard_normal(129).astype(np.float32)
-    blk = OlaFft.create(h, Ne=256, engine="pallas")
-    from libtsd_tpu.ops.pallas.ola import ola_plan
-    _, Ne, V = ola_plan(blk.M, blk.Nf)
-    C = 2
-    n_per_shard = 2 * Ne
-    N = 4 * n_per_shard
-    x = (rng.standard_normal((C, N))
-         + 1j * rng.standard_normal((C, N))).astype(np.complex64)
-    xs = jax.device_put(jnp.asarray(x), channel_sharding(mesh))
-    y = np.asarray(sharded_fir(mesh, blk, xs, state_len=V))
-    y_ref = np.asarray(FR.fir_filter(h, jnp.asarray(x)))
-    assert np.max(np.abs(y - y_ref)) / np.max(np.abs(y_ref)) < 1e-5
-
-
 # ------------------------------------------- time-sharded recursive filters
 
 def test_iir_time_sharded_matches_unsharded():
-    """Cross-shard affine state composition (VERDICT r3 #5): an order-2
+    """Cross-shard affine state composition: an order-2
     Butterworth IirFrame over a time-sharded signal equals the unsharded
     frame-parallel run to float32 reassociation noise."""
-    from libtsd_tpu.ops.iir_design import design_iir
+    from libtsd_jax.ops.iir_design import design_iir
     mesh = make_mesh(chan=2, time=4)
     b, a = design_iir(2, "lp", "butt", 0.1).to_ba()
     blk = FR.IirFrame.create(b, a)
@@ -244,7 +161,7 @@ def test_iir_time_sharded_matches_unsharded():
 def test_iir_time_sharded_time_only_order1():
     """Order-1 de-emphasis (design_lexp) as IirFrame, time-sharded 8 ways
     — the FM chain's feedback stage (BASELINE config 4)."""
-    from libtsd_tpu.ops.iir_design import design_lexp
+    from libtsd_jax.ops.iir_design import design_lexp
     mesh = make_mesh(chan=2, time=4)
     b, a = design_lexp(0.05)
     blk = FR.IirFrame.create(b, a)
@@ -259,7 +176,7 @@ def test_sharded_chain_fir_then_iir():
     """Mixed chain: sample-halo FIR stage feeding a recursive IIR stage
     under ONE shard_map — the end-to-end time-sharded cascade shape of
     the FM receiver."""
-    from libtsd_tpu.ops.iir_design import design_iir
+    from libtsd_jax.ops.iir_design import design_iir
     mesh = make_mesh(chan=2, time=4)
     h = FD.fir_lowpass(33, 0.2)
     fir = FR.Fir.create(h)
@@ -275,7 +192,7 @@ def test_sharded_chain_fir_then_iir():
 def test_sos_chain_time_sharded():
     """A Chain of IirFrames (sos_frame_chain: order-4 elliptic as two
     biquads) routes each section through the state composition."""
-    from libtsd_tpu.ops.iir_design import design_iir, zpk_to_sos
+    from libtsd_jax.ops.iir_design import design_iir, zpk_to_sos
     mesh = make_mesh(chan=2, time=4)
     zpk = design_iir(4, "lp", "ellip", 0.1, 0.5, 40.0)
     sos, k = zpk_to_sos(zpk)
@@ -293,9 +210,9 @@ def test_sharded_fm_receiver_matches_unsharded():
     stage included: NCO mix (global-offset reconstruction) + halo'd
     polyphase FIR/decimate + 1-sample-halo discriminator + cross-shard
     de-emphasis state composition == the unsharded FmReceiver."""
-    from libtsd_tpu.models.receivers import FmReceiver, FmReceiverConfig
-    from libtsd_tpu.parallel import sharded_fm_receiver
-    from libtsd_tpu.models.analog import fm_modulate
+    from libtsd_jax.models.receivers import FmReceiver, FmReceiverConfig
+    from libtsd_jax.parallel import sharded_fm_receiver
+    from libtsd_jax.models.analog import fm_modulate
 
     mesh = make_mesh(chan=2, time=4)
     cfg = FmReceiverConfig(channel_freq=0.22, decim=4, deemph_fc=0.05)
@@ -321,8 +238,8 @@ def test_sharded_chain_rejects_raw_recursive_blocks():
     """A recursive block whose state is NOT an input-sample tail must be
     rejected loudly (an order-1 Iir's state even has the right shape for
     a 1-sample halo, so the fallback would be silently wrong)."""
-    from libtsd_tpu.ops import iir_design as ID
-    from libtsd_tpu.parallel import sharded_chain
+    from libtsd_jax.ops import iir_design as ID
+    from libtsd_jax.parallel import sharded_chain
     mesh = make_mesh(chan=4, time=2)
     b, a = ID.design_lexp(0.1)
     iir = FR.Iir.create(b, a)
@@ -345,8 +262,8 @@ def test_fm_receiver_sharded_matches_unsharded_long():
     to ~2^-10-cycle steps (the sharded and unsharded NCOs must both use
     the host-f64-exact wrapped ramp)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from libtsd_tpu.models.receivers import FmReceiver, FmReceiverConfig
-    from libtsd_tpu.parallel import sharded_fm_receiver
+    from libtsd_jax.models.receivers import FmReceiver, FmReceiverConfig
+    from libtsd_jax.parallel import sharded_fm_receiver
     cfg = FmReceiverConfig(channel_freq=0.22, decim=4, deviation=0.05)
     fm = FmReceiver.create(cfg)
     mesh = make_mesh(chan=2, time=4)
@@ -371,12 +288,12 @@ def test_sharded_frame_receiver_matches_unsharded():
     over a chan-sharded mesh: per-channel decodes identical to the
     unsharded run (channels are the SDR data-parallel axis)."""
     import numpy as np
-    from libtsd_tpu.models import waveform as WF
-    from libtsd_tpu.models.bitstream import randbits
-    from libtsd_tpu.models.detector import DetectorConfig
-    from libtsd_tpu.models.frame import FrameFormat, Receiver, Transmitter
-    from libtsd_tpu.models.modulator import ModConfig
-    from libtsd_tpu.parallel import make_mesh, P, NamedSharding
+    from libtsd_jax.models import waveform as WF
+    from libtsd_jax.models.bitstream import randbits
+    from libtsd_jax.models.detector import DetectorConfig
+    from libtsd_jax.models.frame import FrameFormat, Receiver, Transmitter
+    from libtsd_jax.models.modulator import ModConfig
+    from libtsd_jax.parallel import make_mesh, P, NamedSharding
 
     mesh = make_mesh(chan=4, time=1)
     C = 4
@@ -397,7 +314,7 @@ def test_sharded_frame_receiver_matches_unsharded():
     for c in range(C):
         x[c, 700 + 50 * c: 700 + 50 * c + frames.shape[1]] += \
             0.9 * np.exp(1j * 0.3) * np.asarray(frames[c])
-    from libtsd_tpu.block import pad_to_multiple, safe_pad
+    from libtsd_jax.block import pad_to_multiple, safe_pad
     extra = max(rx.frame_len, 2 * rx.det.M) + 2 * rx.itp.K
 
     @jax.jit

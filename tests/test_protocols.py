@@ -11,7 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import adsb as A
+from libtsd_jax.models import adsb as A
 
 
 def _hexbits(h: str) -> np.ndarray:
@@ -114,7 +114,7 @@ def test_adsb_streaming_across_boundaries():
 
 
 def test_pocsag_bch_constants():
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     # the published frame-sync and idle words must be valid BCH(31,21)+
     # parity codewords under generator 0x769 — pins the polynomial
     for w in (P.FSC, P.IDLE):
@@ -131,9 +131,9 @@ def test_pocsag_bch_constants():
 @pytest.mark.parametrize("baud,auto", [(1200, True), (512, False),
                                        (2400, False)])
 def test_pocsag_loopback(baud, auto):
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe = 38400.0
-    bits = P.pocsag_encode(ric=0x12345, function=3, text="HELLO TPU")
+    bits = P.pocsag_encode(ric=0x12345, function=3, text="HELLO GPU")
     x = P.pocsag_waveform(bits, fe=fe, debit=baud, fi=0.0)
     rng = np.random.default_rng(1)
     x = x + 0.05 * (rng.standard_normal(len(x))
@@ -145,11 +145,11 @@ def test_pocsag_loopback(baud, auto):
     assert len(msgs) == 1
     m = msgs[0]
     assert m.ric == 0x12345 and m.function == 3
-    assert m.text.startswith("HELLO TPU")
+    assert m.text.startswith("HELLO GPU")
 
 
 def test_pocsag_numeric_and_offset_carrier():
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe, fi, baud = 48000.0, 4000.0, 1200
     bits = P.pocsag_encode(ric=1234567, function=0, text="0123 456-789",
                            numeric=True)
@@ -163,7 +163,7 @@ def test_pocsag_numeric_and_offset_carrier():
 
 
 def test_pocsag_single_bit_error_correction():
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe, baud = 38400.0, 1200
     bits = P.pocsag_encode(ric=42, function=3, text="BCH OK")
     # flip one payload bit inside the first MESSAGE codeword: address
@@ -196,7 +196,7 @@ def test_adsb_streaming_osf4_boundary_gap():
 def test_pocsag_numeric_padding_stripped():
     """Numeric pages shorter than the 20-bit boundary must not grow
     spurious trailing digits (padding is the space nibble, stripped)."""
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe, baud = 38400.0, 1200
     bits = P.pocsag_encode(ric=77, function=0, text="911", numeric=True)
     x = P.pocsag_waveform(bits, fe=fe, debit=baud)
@@ -207,7 +207,7 @@ def test_pocsag_numeric_padding_stripped():
 def test_pocsag_double_bit_error_correction():
     """BCH(31,21) has d=5: two bit errors in one codeword must be
     corrected (syndrome matched against the 465 pair table)."""
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe, baud = 38400.0, 1200
     bits = P.pocsag_encode(ric=42, function=3, text="BCH2 OK")
     # two flips inside the first message codeword (slot 5: addr frame 2)
@@ -232,7 +232,7 @@ def test_pocsag_double_bit_error_correction():
 def test_pocsag_message_spans_batches():
     """A long message overflows the first batch; assembly must continue
     through the second batch's sync word."""
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe, baud = 38400.0, 1200
     text = "THE QUICK BROWN FOX JUMPS OVER THE LAZY DOG 0123456789"
     bits = P.pocsag_encode(ric=0x3FFFD, function=3, text=text)  # frame 5
@@ -246,7 +246,7 @@ def test_pocsag_message_spans_batches():
 def test_pocsag_noise_sensitivity():
     """Decodes through moderate AWGN on the FSK signal (the BCH layer
     plus the 8x bit integration should hold well above threshold)."""
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe, baud = 38400.0, 1200
     bits = P.pocsag_encode(ric=99, function=3, text="NOISY")
     x0 = P.pocsag_waveform(bits, fe=fe, debit=baud)
@@ -258,7 +258,7 @@ def test_pocsag_noise_sensitivity():
 
 
 def test_adsb_batched_channels_vmap():
-    """The device decode path is vmap-able over channels — the TPU-scale
+    """The device decode path is vmap-able over channels — the batched
     form for monitoring C receivers at once."""
     import jax
     rng = np.random.default_rng(2)
@@ -297,7 +297,7 @@ def test_cpr_global_pair():
 def test_pocsag_parity_bit_error_patterns():
     """d=6 decision table: errors involving the PARITY bit are
     correctable (the old post-correction-parity gate rejected them)."""
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     fe, baud = 38400.0, 1200
     base = 576 + 32 + 5 * 32          # first message codeword (frame 2)
     # (a) parity-bit-only error: data intact, must decode
@@ -356,7 +356,7 @@ def test_pocsag_message_error_rate_vs_snr():
 
     DETERMINISTIC: seeded default_rng(7) — failures reproduce exactly;
     thresholds calibrated with margin on this seed's realization."""
-    from libtsd_tpu.models import pocsag as P
+    from libtsd_jax.models import pocsag as P
     rng = np.random.default_rng(7)
     fe, baud = 38400.0, 1200
     bits = P.pocsag_encode(ric=777, function=3, text="SNR SWEEP")

@@ -6,7 +6,7 @@ import numpy as np
 def test_periodogram_cqt_oneliner():
     """PSD-suite CQT periodogram (parity: periodogramme_cqt,
     cqt.cc:461-476): two tones land on the right constant-Q bins."""
-    from libtsd_tpu.ops.psd import periodogram_cqt
+    from libtsd_jax.ops.psd import periodogram_cqt
     fs = 8000.0
     t = np.arange(8192) / fs
     x = jnp.asarray(np.sin(2 * np.pi * 440 * t)

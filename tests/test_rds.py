@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import rds as R
-from libtsd_tpu.models.analog import fm_broadcast_multiplex
+from libtsd_jax.models import rds as R
+from libtsd_jax.models.analog import fm_broadcast_multiplex
 
 
 def test_code_structure():
@@ -53,9 +53,9 @@ def test_burst_correction():
 
 def _test_groups():
     pi, pty = 0xF201, 4
-    groups = [R.rds_group_0a(pi, pty, seg, "TSD TPU!"[2 * seg: 2 * seg + 2])
+    groups = [R.rds_group_0a(pi, pty, seg, "TSD JAX!"[2 * seg: 2 * seg + 2])
               for seg in range(4)]
-    groups += [R.rds_group_2a(pi, pty, a, "TPU NATIVE DSP! "[4 * a: 4 * a + 4])
+    groups += [R.rds_group_2a(pi, pty, a, "JAX NATIVE DSP! "[4 * a: 4 * a + 4])
                for a in range(4)]
     return pi, pty, groups
 
@@ -67,14 +67,14 @@ def test_mpx_loopback():
     pi, pty, groups = _test_groups()
     bits = R.rds_encode_groups(groups * 3)
     n = int(len(bits) / R._BITRATE * fs) + 4096
-    from libtsd_tpu.ops.signal import cycles
+    from libtsd_jax.ops.signal import cycles
     pilot = 0.1 * jnp.cos(2 * jnp.pi * cycles(19e3 / fs, n))
     mpx = pilot + R.rds_subcarrier(bits, fs, n)
     got = R.rds_decode_mpx(mpx, fs)
     ok = [g for g in got if g.errors[0] == 0 and g.pi == pi]
     assert len(ok) >= 8, f"{len(got)} groups, {len(ok)} with PI"
-    assert R.rds_station_name(got) == "TSD TPU!"
-    assert R.rds_radiotext(got) == "TPU NATIVE DSP!"
+    assert R.rds_station_name(got) == "TSD JAX!"
+    assert R.rds_radiotext(got) == "JAX NATIVE DSP!"
     assert all(g.pty == pty for g in ok)
 
 
@@ -87,7 +87,7 @@ def test_mpx_loopback_noisy():
     groups = [g for g in groups if (g[1] >> 12) == 0]     # 0A only
     bits = R.rds_encode_groups(groups * 4)
     n = int(len(bits) / R._BITRATE * fs) + 4096
-    from libtsd_tpu.ops.signal import cycles
+    from libtsd_jax.ops.signal import cycles
     pilot = 0.1 * jnp.cos(2 * jnp.pi * cycles(19e3 / fs, n))
     mpx = pilot + R.rds_subcarrier(bits, fs, n)
     rng = np.random.default_rng(5)
@@ -97,7 +97,7 @@ def test_mpx_loopback_noisy():
     bad = sum(1 for g in got for e in g.errors if e < 0)
     assert corrected >= 3, corrected        # correction exercised
     assert bad == 0
-    assert R.rds_station_name(got) == "TSD TPU!"
+    assert R.rds_station_name(got) == "TSD JAX!"
 
 
 def test_version_b_offset_selection():
@@ -106,7 +106,7 @@ def test_version_b_offset_selection():
     # against the offset the VERSION BIT selects — trying the wrong
     # offset first would miscorrect ~36 % of the time (its syndrome
     # lands in the 367-entry burst table by chance).  This exercises the
-    # previously-unvalidated C' ordering path (ADVICE r4 #1).
+    # previously-unvalidated C' ordering path.
     pi, pty = 0xABCD, 9
     # type-0B group: version bit set, block 3 repeats the PI code
     b = (0 << 12) | (1 << 11) | (pty << 5) | (1 << 2) | 2
@@ -139,7 +139,7 @@ def test_fm_if_loopback():
     pi, _, groups = _test_groups()
     bits = R.rds_encode_groups(groups * 3)
     n = int(len(bits) / R._BITRATE * fe) + 65536
-    from libtsd_tpu.ops.signal import cycles
+    from libtsd_jax.ops.signal import cycles
     al = 0.3 * jnp.sin(2 * jnp.pi * cycles(440.0 / fe, n))
     ar = 0.3 * jnp.sin(2 * jnp.pi * cycles(1000.0 / fe, n))
     rds_c = R.rds_subcarrier(bits, fe, n)
@@ -147,4 +147,4 @@ def test_fm_if_loopback():
     got = R.rds_decode(x, fe)
     ok = [g for g in got if g.errors[0] == 0 and g.pi == pi]
     assert len(ok) >= 8, f"{len(got)} groups, {len(ok)} with PI"
-    assert R.rds_station_name(got) == "TSD TPU!"
+    assert R.rds_station_name(got) == "TSD JAX!"

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.block import stream
-from libtsd_tpu.models import channel as CH
-from libtsd_tpu.models import ber as BER
-from libtsd_tpu.models.analog import fm_modulate
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.receivers import (FmReceiver, FmReceiverConfig,
+from libtsd_jax.block import stream
+from libtsd_jax.models import channel as CH
+from libtsd_jax.models import ber as BER
+from libtsd_jax.models.analog import fm_modulate
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.receivers import (FmReceiver, FmReceiverConfig,
                                          Qam16Modem, evm)
 
 
@@ -92,7 +92,7 @@ def test_qam16_modem_clean():
     bits = randbits(jax.random.PRNGKey(0), 4 * nsym)
     x = modem.transmit(bits)
     # small timing offset for the Gardner loop to chew on
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.fft import delay_signal
     x = delay_signal(x, 1.3)
     rx_bits, syms, mask, ev = modem.receive(x)
     rb = np.asarray(rx_bits)[np.asarray(jnp.repeat(mask, 4))]
@@ -122,7 +122,7 @@ def test_qam16_modem_awgn_evm():
 def test_qam16_modem_sharded_channels():
     """Config 5 shape: the modem RX vmapped over channels on a chan-sharded
     mesh."""
-    from libtsd_tpu.parallel import make_mesh, P, NamedSharding
+    from libtsd_jax.parallel import make_mesh, P, NamedSharding
     mesh = make_mesh(chan=8, time=1)
     modem = Qam16Modem.create(osf=4)
     C = 8
@@ -139,3 +139,31 @@ def test_qam16_modem_sharded_channels():
     evs = np.asarray(rx_all(modem, txs))
     assert evs.shape == (C,)
     assert np.all(evs < 0.12), evs
+
+
+@pytest.mark.parametrize("decim,deemph_fc", [(4, 0.05), (4, 0.0),
+                                             (8, 0.05), (2, 0.02)])
+def test_fm_receiver_matches_numpy_chain(decim, deemph_fc):
+    """FmReceiver vs the composed NumPy reference over two channels and
+    three streamed blocks."""
+    from libtsd_jax.utils.testing import fm_receiver_ref
+    cfg = FmReceiverConfig(channel_freq=0.2, decim=decim, deviation=0.1,
+                           deemph_fc=deemph_fc)
+    rx = FmReceiver.create(cfg)
+    n = 3 * 1024
+    t = np.arange(n)
+    auds = [np.sin(2 * np.pi * f * t).astype(np.float32)
+            for f in (0.002, 0.003)]
+    x = np.stack([np.asarray(make_fm_if_signal(jnp.asarray(a), cfg, n))
+                  for a in auds])
+    x = x + 0.01 * np.random.default_rng(decim).standard_normal(x.shape)
+    x = x.astype(np.complex64)
+    st = rx.init_for(jnp.asarray(x[:, :1024]))
+    outs = []
+    for b0 in range(0, n, 1024):
+        st, y = rx.step(st, jnp.asarray(x[:, b0:b0 + 1024]))
+        outs.append(np.asarray(y))
+    got = np.concatenate(outs, axis=-1)
+    ref = fm_receiver_ref(rx, x)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() < 2e-3

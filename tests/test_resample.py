@@ -6,11 +6,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.block import stream
-from libtsd_tpu.ops import resample as RS
-from libtsd_tpu.ops import filter_rt as FR
-from libtsd_tpu.ops import fir_design as FD
-from libtsd_tpu.utils.testing import check_max_error
+from libtsd_jax.block import stream
+from libtsd_jax.ops import resample as RS
+from libtsd_jax.ops import filter_rt as FR
+from libtsd_jax.ops import fir_design as FD
+from libtsd_jax.utils.testing import check_max_error
 
 rng = np.random.default_rng(3)
 
@@ -232,8 +232,8 @@ def test_resampler_factor2_roundtrip():
     up = np.asarray(RS.resample(jnp.asarray(x), 2.0))
     down = np.asarray(RS.resample(jnp.asarray(up), 0.5))
     # align (total delay of both stages) and compare interior
-    from libtsd_tpu.ops.corr import estimate_delay
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.corr import estimate_delay
+    from libtsd_jax.ops.fft import delay_signal
     d, score = estimate_delay(jnp.asarray(x), jnp.asarray(down[:n]))
     assert float(score) > 0.95
     # total chain delay is fractional — compensate exactly before comparing
@@ -280,8 +280,8 @@ def test_filter_delay_conventions():
     """Impulse-response peak lands at the documented .delay for the plain
     FIR and the polyphase upsampler across R (mirrors the reference's
     test_delais_filtres, test-telecom.cc:114-149)."""
-    from libtsd_tpu.ops import fir_design as FD
-    from libtsd_tpu.ops.filter_rt import Fir
+    from libtsd_jax.ops import fir_design as FD
+    from libtsd_jax.ops.filter_rt import Fir
 
     h = FD.fir_design_windowed(7, "lp", 0.3, "hn")
     x = np.zeros(15, np.float32)
@@ -317,7 +317,7 @@ def test_resample_ratio_sweep_purity(ratio):
     ratio, including irrational ones (whose residual stage approximates
     to ~ppm with a bounded fraction — the old 1<<16 denominator cap made
     pi's cycle constraints enormous and the spur floor -20 dB)."""
-    from libtsd_tpu.ops.resample import Resampler, resample
+    from libtsd_jax.ops.resample import Resampler, resample
     f, n = 0.043, 1 << 14
     x = np.cos(2 * np.pi * f * np.arange(n)).astype(np.float32)
     r = Resampler.create(float(ratio))
@@ -340,7 +340,7 @@ def test_cic_bit_growth_hogenauer_example():
     (R=25, M=1, N=4, 16-bit in/out): total register width 35 bits;
     prunable LSBs nondecreasing along the chain, and no stage may prune
     more than the output's own discard budget."""
-    from libtsd_tpu.ops.resample import CicConfig, cic_bit_growth
+    from libtsd_jax.ops.resample import CicConfig, cic_bit_growth
     r = cic_bit_growth(CicConfig(R=25, N=4, M=1), bin_bits=16,
                        bout_bits=16)
     assert r["bmax"] == 35                 # 16 + ceil(4 log2 25)
@@ -355,8 +355,8 @@ def test_cic_bit_growth_hogenauer_example():
 
 
 def test_cic_analyse_reports_stage_profile():
-    from libtsd_tpu.ops.resample import CicConfig
-    from libtsd_tpu.viz.figure import cic_analyse
+    from libtsd_jax.ops.resample import CicConfig
+    from libtsd_jax.viz.figure import cic_analyse
     figs, m = cic_analyse(CicConfig(R=8, N=3, M=1))
     assert len(m["stage_bits"]) == 3
     assert len(m["prunable_bits"]) == 6
@@ -366,8 +366,8 @@ def test_cic_analyse_reports_stage_profile():
 def test_cic_analyse_bit_width_passthrough():
     """The Hogenauer metrics must follow the ADC width (a 12-bit front
     end is 4 registers bits narrower than the 16-bit default)."""
-    from libtsd_tpu.ops.resample import CicConfig
-    from libtsd_tpu.viz.figure import cic_analyse
+    from libtsd_jax.ops.resample import CicConfig
+    from libtsd_jax.viz.figure import cic_analyse
     cfg = CicConfig(R=64, N=5, M=1)
     _, m16 = cic_analyse(cfg)
     _, m12 = cic_analyse(cfg, bin_bits=12, bout_bits=12)

@@ -1,7 +1,7 @@
 """End-to-end serving loop: IqFileReader -> StreamRunner/StreamReceiver ->
 frame Receiver, with per-stage monitors and mid-stream checkpoint/resume.
 
-Validates the VERDICT r2 #8 bar: bit-identical continuation through the
+Validates bit-identical continuation through the
 FULL frame-RX state (detector OLA tail, deferred block-edge detections,
 extraction history), not just filter states.  Parity context: the
 reference's serving loop is recepteur.cc:404-650 driven by tampon_création
@@ -15,14 +15,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.io import IqFileReader, StreamRunner, cs16_to_cf32
-from libtsd_tpu.io.streamio import RingBuffer
-from libtsd_tpu.models import waveform as WF
-from libtsd_tpu.models import ber as BER
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.modulator import ModConfig
-from libtsd_tpu.models.detector import DetectorConfig
-from libtsd_tpu.models.frame import (FrameFormat, Receiver, StreamReceiver,
+from libtsd_jax.io import IqFileReader, StreamRunner, cs16_to_cf32
+from libtsd_jax.io.streamio import RingBuffer
+from libtsd_jax.models import waveform as WF
+from libtsd_jax.models import ber as BER
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.modulator import ModConfig
+from libtsd_jax.models.detector import DetectorConfig
+from libtsd_jax.models.frame import (FrameFormat, Receiver, StreamReceiver,
                                      Transmitter)
 
 NFRAMES = 6
@@ -230,23 +230,6 @@ def test_stream_receiver_checkpoint_and_monitors(serving_setup, tmp_path):
     assert stats["recepteur/demod"].samples > 0
 
 
-def test_uses_pallas_propagates_through_composites():
-    """shard_map's vma-checker scoping keys off Block.uses_pallas: it
-    must propagate through composite blocks that EMBED a Pallas-engine
-    OLA (Detector -> Receiver), not only through Chain."""
-    wf = WF.wf_qpsk(WF.PulseShape.rcs(0.25))
-    mc = ModConfig(wf=wf, fe=4.0, fsymb=1.0)
-    hdr = np.asarray(randbits(jax.random.PRNGKey(42), 64))
-    fmt = FrameFormat(modulation=mc,
-                      header_bits=tuple(int(b) for b in hdr),
-                      payload_bits=64)
-    rx_xla = Receiver.create(fmt, DetectorConfig(threshold=0.5))
-    assert not rx_xla.uses_pallas and not rx_xla.det.uses_pallas
-    rx_pal = Receiver.create(fmt, DetectorConfig(threshold=0.5,
-                                                 engine="pallas"))
-    assert rx_pal.uses_pallas and rx_pal.det.uses_pallas
-
-
 def test_restore_abandons_previous_stream(serving_setup, tmp_path):
     """restore() into a runner that already streamed must clear collected
     and in-flight outputs of the abandoned stream."""
@@ -280,25 +263,25 @@ def test_restore_abandons_previous_stream(serving_setup, tmp_path):
 
 
 def test_periodogram_cqt_rejects_complex():
-    from libtsd_tpu.ops import psd as PSD
+    from libtsd_jax.ops import psd as PSD
     x = jnp.ones(4096, jnp.complex64)
     with pytest.raises(ValueError):
         PSD.periodogram_cqt(x, fs=8000.0, fmin=100.0, fmax=2000.0)
 
 
-def test_stream_receiver_checkpoint_fused_engine(tmp_path):
-    """Checkpoint/restore through the fused-detector state (complex
-    input-tail leaf + the zero-length energy placeholder): resumed
-    stream decodes identically to the uninterrupted one."""
+def test_stream_receiver_checkpoint_stride8_pll(tmp_path):
+    """Checkpoint/restore of the serving configuration (stride-8 grouped
+    residual PLL): the resumed stream decodes identically to the
+    uninterrupted one."""
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from libtsd_tpu.models import waveform as WF
-    from libtsd_tpu.models.bitstream import randbits
-    from libtsd_tpu.models.detector import DetectorConfig
-    from libtsd_tpu.models.frame import (FrameFormat, Receiver,
+    from libtsd_jax.models import waveform as WF
+    from libtsd_jax.models.bitstream import randbits
+    from libtsd_jax.models.detector import DetectorConfig
+    from libtsd_jax.models.frame import (FrameFormat, Receiver,
                                          StreamReceiver, Transmitter)
-    from libtsd_tpu.models.modulator import ModConfig
+    from libtsd_jax.models.modulator import ModConfig
     wf = WF.wf_qpsk(WF.PulseShape.rcs(0.25))
     hdr = np.asarray(randbits(jax.random.PRNGKey(42), 64))
     fmt = FrameFormat(modulation=ModConfig(wf=wf, fe=4.0, fsymb=1.0),
@@ -315,8 +298,7 @@ def test_stream_receiver_checkpoint_fused_engine(tmp_path):
     x = np.concatenate(sig)
 
     def make():
-        rx = Receiver.create(fmt, DetectorConfig(threshold=0.5,
-                                                 engine="fused"),
+        rx = Receiver.create(fmt, DetectorConfig(threshold=0.5),
                              pll_stride=8)
         return StreamReceiver(rx)
 

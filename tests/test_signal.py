@@ -2,10 +2,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from libtsd_tpu.ops import signal as S
-from libtsd_tpu.ops import rng as R
-from libtsd_tpu.ops import psd as P
-from libtsd_tpu.utils.testing import check_max_error
+from libtsd_jax.ops import signal as S
+from libtsd_jax.ops import rng as R
+from libtsd_jax.ops import psd as P
+from libtsd_jax.utils.testing import check_max_error
 import jax
 
 

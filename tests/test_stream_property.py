@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.ops import filter_rt as FR
-from libtsd_tpu.ops import fir_design as FD
-from libtsd_tpu.ops import iir_design as ID
-from libtsd_tpu.ops import resample as RS
+from libtsd_jax.ops import filter_rt as FR
+from libtsd_jax.ops import fir_design as FD
+from libtsd_jax.ops import iir_design as ID
+from libtsd_jax.ops import resample as RS
 
 rng = np.random.default_rng(0)
 

@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import waveform as WF
-from libtsd_tpu.models import channel as CH
-from libtsd_tpu.models import ber as BER
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.modulator import ModConfig, Modulator
-from libtsd_tpu.models.clock_rec import ClockRec, ClockRecConfig
-from libtsd_tpu.models.carrier_rec import (Cpll, CpllConfig, LoopFilter2,
+from libtsd_jax.models import waveform as WF
+from libtsd_jax.models import channel as CH
+from libtsd_jax.models import ber as BER
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.modulator import ModConfig, Modulator
+from libtsd_jax.models.clock_rec import ClockRec, ClockRecConfig
+from libtsd_jax.models.carrier_rec import (Cpll, CpllConfig, LoopFilter2,
                                            peak_frequency, ped_costas)
 
 
@@ -82,7 +82,7 @@ def test_clock_rec_recovers_symbols(osf):
     mf = wf.shaping.matched_filter(0, osf)
     _, z = mf.step(mf.init_for(x), x)
     # fractional timing offset the loop must find
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.fft import delay_signal
     z = delay_signal(z, 0.3 * osf)
 
     cr = ClockRec.create(ClockRecConfig(osf=osf, tc=8.0))
@@ -108,7 +108,7 @@ def test_clock_rec_plus_decode():
     x, _ = mod.modulate(bits)
     mf = wf.shaping.matched_filter(0, osf)
     _, z = mf.step(mf.init_for(x), x)
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.fft import delay_signal
     z = delay_signal(z, 1.45 * osf)
     cr = ClockRec.create(ClockRecConfig(osf=osf, tc=8.0))
     _, (syms, mask) = cr.step(cr.init(), z)
@@ -123,7 +123,7 @@ def test_clock_rec_plus_decode():
 def test_clock_rec2_pointer_variant():
     """Pointer-based (symbol-rate scan) clock recovery: same scenario as
     the per-sample loop, must converge at least as tightly."""
-    from libtsd_tpu.models.clock_rec2 import ClockRec2
+    from libtsd_jax.models.clock_rec2 import ClockRec2
     key = jax.random.PRNGKey(3)
     osf = 4
     wf = WF.wf_qpsk(WF.PulseShape.rcs(0.3))
@@ -133,7 +133,7 @@ def test_clock_rec2_pointer_variant():
     x, _ = mod.modulate(bits)
     mf = wf.shaping.matched_filter(0, osf)
     _, z = mf.step(mf.init_for(x), x)
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.fft import delay_signal
     z = delay_signal(z, 1.45 * osf)
     cr = ClockRec2.create(ClockRecConfig(osf=osf, tc=8.0))
     _, (syms, mask) = cr.step(cr.init(), z)
@@ -153,7 +153,7 @@ def test_clock_rec2_streaming_matches_oneshot():
     the previous block's tail (a zero front-pad used to corrupt the first
     ~K/osf symbols of every block with valid=True and permanently drop
     the last ~K/osf)."""
-    from libtsd_tpu.models.clock_rec2 import ClockRec2
+    from libtsd_jax.models.clock_rec2 import ClockRec2
     key = jax.random.PRNGKey(5)
     osf = 4
     wf = WF.wf_bpsk(WF.PulseShape.rcs(0.3))
@@ -180,8 +180,8 @@ def test_clock_rec2_streaming_matches_oneshot():
 
 def test_demod_dec2_streaming_matches_oneshot():
     """Same boundary guarantee for the fused decision-directed demod."""
-    from libtsd_tpu.models.demod_dec import DecDemodConfig
-    from libtsd_tpu.models.demod_dec2 import DecisionDemod2
+    from libtsd_jax.models.demod_dec import DecDemodConfig
+    from libtsd_jax.models.demod_dec2 import DecisionDemod2
     key = jax.random.PRNGKey(6)
     osf = 4
     wf = WF.wf_qpsk(WF.PulseShape.rcs(0.3))
@@ -220,7 +220,7 @@ def test_ted_family_converges(ted):
     x, _ = mod.modulate(bits)
     mf = wf.shaping.matched_filter(0, osf)
     _, z = mf.step(mf.init_for(x), x)
-    from libtsd_tpu.ops.fft import delay_signal
+    from libtsd_jax.ops.fft import delay_signal
     z = delay_signal(z, 0.3 * osf)
 
     cr = ClockRec.create(ClockRecConfig(osf=osf, tc=8.0, ted=ted))
@@ -236,7 +236,7 @@ def test_ted_family_converges(ted):
 def test_loop_filter1_time_constant():
     """Parity: test_filtre_boucle_ordre_1 (test-telecom.cc:5-29) — the
     order-1 loop driven by e = 1 - y must reach 63.2% at tau steps."""
-    from libtsd_tpu.models.carrier_rec import LoopFilter1
+    from libtsd_jax.models.carrier_rec import LoopFilter1
     lf = LoopFilter1(tau=5.0)
     st = lf.init()
     y = [0.0]
@@ -251,7 +251,7 @@ def test_ped_detects_rotation(ped_name):
     """Parity: test_ped (test-crec.cc:5-25) — each phase-error detector,
     fed a tone rotating at f=0.02 cycles/sample, must report a mean
     per-sample phase advance of 2*pi*f within 10% relative error."""
-    from libtsd_tpu.models.carrier_rec import (ped_costas, ped_ploop,
+    from libtsd_jax.models.carrier_rec import (ped_costas, ped_ploop,
                                                ped_tloop)
     ped = {"ploop": ped_ploop(2), "tloop": ped_tloop(2),
            "costas": ped_costas(2)}[ped_name]
@@ -282,7 +282,7 @@ def test_cpll_bpsk_noise_phase_doppler():
     a pi/4 static phase AND a 0.01 cyc/sample Doppler ramp; after the
     CPLL the mean residual phase (arg of the squared symbols / 2) must be
     below 10 degrees."""
-    from libtsd_tpu.models.carrier_rec import Cpll, CpllConfig
+    from libtsd_jax.models.carrier_rec import Cpll, CpllConfig
     rng = np.random.default_rng(5)
     n = 1000
     sym = np.sign(rng.standard_normal(n)).astype(np.complex64)
@@ -301,8 +301,8 @@ def test_clock_rec2_pointer_underrun_recovers():
     """clock_rec2: deep-negative pointer re-anchors (was: dynamic_slice
     clamp -> permanent stale-sample decoding flagged valid)."""
     import jax.numpy as jnp
-    from libtsd_tpu.models.clock_rec import ClockRecConfig
-    from libtsd_tpu.models.clock_rec2 import ClockRec2
+    from libtsd_jax.models.clock_rec import ClockRecConfig
+    from libtsd_jax.models.clock_rec2 import ClockRec2
     rng = np.random.default_rng(0)
     osf = 8
     cr = ClockRec2.create(ClockRecConfig(osf=osf))
@@ -323,11 +323,11 @@ def test_clock_offset_preset():
     with zero steady-state errors from a presetted start, and the
     preset visibly shifts the initial sampling phase."""
     import numpy as np
-    from libtsd_tpu.models.demod_dec2 import DecisionDemod2
-    from libtsd_tpu.models.demod_dec import DecDemodConfig
-    from libtsd_tpu.models import waveform as WF
-    from libtsd_tpu.models.modulator import ModConfig, Modulator
-    from libtsd_tpu.models import ber as BER
+    from libtsd_jax.models.demod_dec2 import DecisionDemod2
+    from libtsd_jax.models.demod_dec import DecDemodConfig
+    from libtsd_jax.models import waveform as WF
+    from libtsd_jax.models.modulator import ModConfig, Modulator
+    from libtsd_jax.models import ber as BER
     wf = WF.wf_qpsk(WF.PulseShape.rcs(0.35))
     mod = Modulator.create(ModConfig(wf=wf, fe=4.0, fsymb=1.0))
     rng = np.random.default_rng(0)

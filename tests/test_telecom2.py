@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import waveform as WF
-from libtsd_tpu.models import analog as AN
-from libtsd_tpu.models import spread as SP
-from libtsd_tpu.models import lfsr as LF
-from libtsd_tpu.models.equalizer import LmsEqualizer, zfe_design, \
+from libtsd_jax.models import waveform as WF
+from libtsd_jax.models import analog as AN
+from libtsd_jax.models import spread as SP
+from libtsd_jax.models import lfsr as LF
+from libtsd_jax.models.equalizer import LmsEqualizer, zfe_design, \
     convolution_matrix
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.ops.filter_rt import fir_filter
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.ops.filter_rt import fir_filter
 
 
 def test_convolution_matrix():
@@ -104,7 +104,7 @@ def test_lms_nonminimum_phase_channel():
 def test_propagation_channel_random_delay_jits():
     """Regression: clock_delay=-1 (randomized) crashed under jit with a
     tracer concretization error."""
-    from libtsd_tpu.models.channel import ChannelConfig, propagation_channel
+    from libtsd_jax.models.channel import ChannelConfig, propagation_channel
     x = jnp.asarray(np.random.default_rng(0).standard_normal(512)
                     + 1j * np.random.default_rng(1).standard_normal(512),
                     jnp.complex64)
@@ -277,7 +277,7 @@ def test_matzner_tracker_clamp_mode():
     reference-parity default emits NaN indefinitely (2*e2^2 - e4 is
     zero-mean for complex Gaussian noise)."""
     import numpy as np
-    from libtsd_tpu.models.snr import MatznerTracker
+    from libtsd_jax.models.snr import MatznerTracker
     key = jax.random.PRNGKey(0)
     nz = (jax.random.normal(key, (4096,)) +
           1j * jax.random.normal(jax.random.PRNGKey(1), (4096,)))
@@ -294,7 +294,7 @@ def test_cmp_bits_psk_degenerate_returns_real_counts():
     """All-rotations-BER-1.0 input must return the actual measurement,
     not the 2^30 sentinel."""
     import numpy as np
-    from libtsd_tpu.models.ber import cmp_bits_psk
+    from libtsd_jax.models.ber import cmp_bits_psk
     tx = jnp.asarray(np.zeros(32, np.int8))
     rx = jnp.asarray(np.ones(32, np.int8))
     ber, errs, lag = cmp_bits_psk(tx, rx, k=1, max_lag=4)
@@ -306,8 +306,8 @@ def test_fsk_gen_samples_matches_modulator_scaling():
     extreme, not the per-call data max: a block using only inner 4-FSK
     levels must NOT stretch to full deviation."""
     import numpy as np
-    from libtsd_tpu.models import waveform as WF
-    from libtsd_tpu.models.demod import quadrature_discriminator
+    from libtsd_jax.models import waveform as WF
+    from libtsd_jax.models.demod import quadrature_discriminator
     wf = WF.wf_fsk(4, index=1.0, shaping=WF.PulseShape.nrz())
     osf = 8
     # symbols 1 and 2 are the INNER +-1/3 levels of 4-FSK

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.utils import wav as WAV
-from libtsd_tpu.utils import timedate as TD
-from libtsd_tpu.utils import geometry as GEO
-from libtsd_tpu.utils.monitor import Monitor, Monitors
-from libtsd_tpu.ops import dwt as DW
-from libtsd_tpu.ops import cqt as CQ
-from libtsd_tpu import viz as VZ
+from libtsd_jax.utils import wav as WAV
+from libtsd_jax.utils import timedate as TD
+from libtsd_jax.utils import geometry as GEO
+from libtsd_jax.utils.monitor import Monitor, Monitors
+from libtsd_jax.ops import dwt as DW
+from libtsd_jax.ops import cqt as CQ
+from libtsd_jax import viz as VZ
 
 
 def test_wav_roundtrip(tmp_path):
@@ -66,7 +66,7 @@ def test_leap_years():
 def test_unit_formatting():
     """SI-prefixed engineering units (parity: tsd::vue::unites,
     unites.cc:8-155; mirrors test_unites, test-figure-old.cc:11-30)."""
-    from libtsd_tpu.viz import (calc_expo_ndigits, calc_expo_ndigits_common,
+    from libtsd_jax.viz import (calc_expo_ndigits, calc_expo_ndigits_common,
                                 si_tick_formatter, unit_format)
     assert unit_format(1500, "Hz") == "1.5 KHz"
     assert unit_format(2.5e7, "Hz") == "25 MHz"
@@ -188,8 +188,8 @@ def test_cqt_tone():
 
 
 def test_figure_and_report(tmp_path):
-    from libtsd_tpu.viz import Figure, Figures
-    from libtsd_tpu.viz.report import Report
+    from libtsd_jax.viz import Figure, Figures
+    from libtsd_jax.viz.report import Report
     rep = Report(str(tmp_path / "rep"))
     f = Figure("test")
     f.plot(np.sin(np.linspace(0, 10, 100)), fmt="b-", label="sine")
@@ -209,7 +209,7 @@ def test_figure_and_report(tmp_path):
 
 def test_frat_algebra_and_simplify():
     """FRat rational algebra (parity: frat.hpp:16-916)."""
-    from libtsd_tpu.ops.poly import FRat
+    from libtsd_jax.ops.poly import FRat
     f = FRat.from_zpk([0.5, 2.0], [0.5, 0.9], 3.0)
     g = f.simplify()
     assert np.allclose(sorted(g.zeros.real), [2.0])
@@ -226,7 +226,7 @@ def test_frat_algebra_and_simplify():
 
 def test_duration_algebra():
     """Duration/HourComposite arithmetic (parity: temps.cc:51-331)."""
-    from libtsd_tpu.utils.timedate import (Calendar, DateTime, Duration,
+    from libtsd_jax.utils.timedate import (Calendar, DateTime, Duration,
                                            HourComposite, TimeOfDay,
                                            datetime_add, datetime_diff)
     d = Duration.hours(1) + Duration.minutes(30)
@@ -248,9 +248,9 @@ def test_duration_algebra():
 
 
 def test_plot_plz_and_ellipse(tmp_path):
-    from libtsd_tpu.viz.figure import (plot_plz, covariance_ellipse,
+    from libtsd_jax.viz.figure import (plot_plz, covariance_ellipse,
                                        plot_covariance_ellipse, Figure)
-    from libtsd_tpu.ops import iir_design as ID
+    from libtsd_jax.ops import iir_design as ID
     # plot a REAL designed filter (not dead hardcoded literals)
     zpk = ID.design_iir(4, "lp", "butt", 0.1)
     b, a = zpk.to_ba()
@@ -270,8 +270,8 @@ def test_plot_plz_and_ellipse(tmp_path):
 
 
 def test_cic_analyse_figures(tmp_path):
-    from libtsd_tpu.viz.figure import cic_analyse
-    from libtsd_tpu.ops.resample import CicConfig
+    from libtsd_jax.viz.figure import cic_analyse
+    from libtsd_jax.ops.resample import CicConfig
     cfg = CicConfig(R=8, N=4, M=1)
     figs, metrics = cic_analyse(cfg, fe=1.0, comp_ncoefs=31)
     assert metrics["droop_db"] < 0          # droop is a loss
@@ -285,7 +285,7 @@ def test_cic_analyse_figures(tmp_path):
 def test_rotmat_to_quat_180_degree_branches():
     """Shepperd's method must survive 180-degree rotations (the
     trace-only branch collapsed them to the identity quaternion)."""
-    from libtsd_tpu.utils.geometry import (quat_to_rotmat, rotmat_to_quat)
+    from libtsd_jax.utils.geometry import (quat_to_rotmat, rotmat_to_quat)
     cases = [np.diag([1.0, -1.0, -1.0]),     # 180 about x
              np.diag([-1.0, 1.0, -1.0]),     # 180 about y
              np.diag([-1.0, -1.0, 1.0])]     # 180 about z
@@ -308,7 +308,7 @@ def test_julian_calendar_roundtrip():
     """Pre-1582 dates are Julian-calendar: encoder and decoder must
     agree (they did not — the encoder always applied the Gregorian
     correction)."""
-    from libtsd_tpu.utils.timedate import gregorian_to_jd, jd_to_gregorian
+    from libtsd_jax.utils.timedate import gregorian_to_jd, jd_to_gregorian
     for ymd in [(1500, 1, 1), (1000, 6, 15), (4, 2, 29), (1582, 10, 4),
                 (1582, 10, 15), (2021, 2, 8)]:
         y, m, d = ymd
@@ -323,7 +323,7 @@ def test_julian_calendar_roundtrip():
 def test_wav_streaming_writer_reader(tmp_path):
     """True streaming: the writer appends to disk per write (header
     patched at close), the reader freads only what's asked."""
-    from libtsd_tpu.utils.wav import WavReader, WavWriter, wav_load
+    from libtsd_jax.utils.wav import WavReader, WavWriter, wav_load
     p = str(tmp_path / "s.wav")
     rng = np.random.default_rng(0)
     chunks = [rng.standard_normal(n).astype(np.float32) * 0.5
@@ -346,7 +346,7 @@ def test_wav_streaming_writer_reader(tmp_path):
 
 
 def test_figure_titles_preserve_axis_labels():
-    from libtsd_tpu.viz.figure import Figure
+    from libtsd_jax.viz.figure import Figure
     f = Figure()
     f.plot_psd(np.random.default_rng(0).standard_normal(256))
     f.titles("My PSD")
@@ -359,9 +359,9 @@ def test_plot_filter_panel(tmp_path):
     design panel for FIR taps and (b, a) IIR, complete mode includes
     phase/group-delay/step/pole-zero subplots."""
     import os
-    from libtsd_tpu.ops.fir_design import fir_lowpass
-    from libtsd_tpu.ops.iir_design import design_iir
-    from libtsd_tpu.viz import plot_filter
+    from libtsd_jax.ops.fir_design import fir_lowpass
+    from libtsd_jax.ops.iir_design import design_iir
+    from libtsd_jax.viz import plot_filter
     figs = plot_filter(fir_lowpass(63, 0.2))
     p1 = str(tmp_path / "fir.png")
     figs.save(p1)

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from libtsd_tpu.models import waveform as WF
-from libtsd_tpu.models import channel as CH
-from libtsd_tpu.models import snr as SNR
-from libtsd_tpu.models import ber as BER
-from libtsd_tpu.models.bitstream import randbits
-from libtsd_tpu.models.modulator import ModConfig, Modulator
+from libtsd_jax.models import waveform as WF
+from libtsd_jax.models import channel as CH
+from libtsd_jax.models import snr as SNR
+from libtsd_jax.models import ber as BER
+from libtsd_jax.models.bitstream import randbits
+from libtsd_jax.models.modulator import ModConfig, Modulator
 
 
 def test_bits_symbols_roundtrip():
@@ -104,7 +104,7 @@ def test_modulator_if_upconversion():
     bits = jnp.ones(64, jnp.int8)
     y, _ = mod.modulate(bits)
     # all-ones BPSK at IF=fe/4: spectrum peak at f=0.25
-    from libtsd_tpu.ops.psd import freq_estim
+    from libtsd_jax.ops.psd import freq_estim
     f = float(freq_estim(y, "fft"))
     assert abs(abs(f) - 0.25) < 0.02
 
@@ -177,7 +177,7 @@ def test_pi4_qpsk_streaming_modulator_parity_carries():
     (one-shot != streaming).  The parity now rides the modulator
     state."""
     import numpy as np
-    from libtsd_tpu.models.modulator import ModConfig, Modulator
+    from libtsd_jax.models.modulator import ModConfig, Modulator
     wf = WF.wf_pi4_qpsk(WF.PulseShape.rcs(0.35))
     mod = Modulator.create(ModConfig(wf=wf, fe=4.0, fsymb=1.0))
     rng = np.random.default_rng(0)

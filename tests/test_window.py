@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import scipy.signal.windows as sw
 
-from libtsd_tpu.ops import window as W
+from libtsd_jax.ops import window as W
 
 
 @pytest.mark.parametrize("n", [16, 64, 128])
